@@ -1,6 +1,6 @@
-"""lidar_imu_slam_tpu — TPU-native LiDAR-inertial odometry / SLAM framework.
+"""lidar_imu_slam_tpu — LiDAR-inertial odometry / SLAM framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 C++/ROS stack (Oreoluwa-Se/Lidar-Imu-Slam): KISS-ICP-style point-to-point
 registration against a voxel-hash local map, constant-velocity and IMU motion
 compensation, and a 170-dim quaternion error-state EKF — expressed as one

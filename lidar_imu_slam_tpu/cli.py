@@ -17,7 +17,7 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="TPU-native LiDAR(-inertial) odometry")
+    p = argparse.ArgumentParser(description="LiDAR(-inertial) odometry")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--kitti", help="KITTI odometry sequence dir (velodyne/*.bin)")
     src.add_argument("--bag", help="rosbag v2.0 file")
@@ -133,6 +133,9 @@ def _synthetic_scans(args, cfg):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     cfg = _load_config(args)
     if args.loop_closure:
         import dataclasses

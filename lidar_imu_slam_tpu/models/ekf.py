@@ -12,7 +12,7 @@ include/limu/kalman/ekf.hpp) as pure functions over an `EkfState` pytree:
     [30:]   trail of `lidar_pose_trail` historical 7-dim poses
   => state_dim = 30 + 20*7 = 170 with the default trail (ekf.cpp:67).
 
-TPU-native differences from the reference (all documented):
+Differences from the reference (all documented):
   * A = exp(S(w)dt) is closed form (ops/lie.quat_propagator) instead of
     Eigen's unsupported MatrixFunctions expm (ekf.cpp:266-267, 349).
   * dR/dq is the analytic Jacobian of the rotation formula
@@ -20,8 +20,8 @@ TPU-native differences from the reference (all documented):
     (helper.hpp:19-33), which is not a derivative.
   * Pose-trail augmentation shift matrices (ekf.cpp:119-190) become gather
     index maps — no sparse matmuls.
-  * Innovation solves use Cholesky (f64 LU does not compile on TPU); the
-    reference's LDLT on the same SPD systems is numerically equivalent.
+  * Innovation solves use an unrolled Cholesky; the reference's LDLT on
+    the same SPD systems is numerically equivalent.
   * Covariance propagation exploits the trail block structure exactly like
     the reference (ekf.cpp:284-289): only the top-left 30x30 and the 30-wide
     cross strips are touched per IMU sample.
@@ -389,8 +389,8 @@ def _state_jacobians(T_ab, prev_quat, A, R, dR, xa, dt):
 def _block_cov_propagate(P, Fx, Fw_Q_FwT):
     """P update exploiting trail sparsity (reference ekf.cpp:284-289).
 
-    matmul_nowhile: f64 dot_generals lower to bf16 while-loop emulation on
-    TPU; this runs once per IMU sample inside the predict scan."""
+    matmul_nowhile keeps the products elementwise; this runs once per IMU
+    sample inside the predict scan."""
     mm = lie.matmul_nowhile
     FxT = Fx.T
     P = P.at[:INNER, :INNER].set(mm(mm(Fx, P[:INNER, :INNER]), FxT) + Fw_Q_FwT)
@@ -456,8 +456,8 @@ def predict_mean(
     propagation. This is the reference's frame-end extrapolation semantics
     (ekf.cpp:393-410 extrapolates the nominal trail, never the filter
     covariance); used for the <= one-IMU-period scan-end hold in
-    models/lio.py, where the full Fx/Fw build + three 30-dim emulated
-    matmuls cost ~0.4 ms/scan for a covariance change of O(Q * 10 ms)."""
+    models/lio.py, where the full Fx/Fw build + three 30-dim matmuls
+    would buy a covariance change of only O(Q * 10 ms)."""
     dt = jnp.where(state.first_sample, 0.0, t - state.prev_sample_t)
     new_time = jnp.where(state.first_sample, state.time, t - state.first_sample_t)
     first_sample_t = jnp.where(state.first_sample, t, state.first_sample_t)
@@ -622,9 +622,8 @@ def update_visual_pose_aug(state: EkfState, cfg: EkfConfig) -> EkfState:
     H = H.at[3 + jnp.arange(4), INNER + 3 + jnp.arange(4)].set(-1.0)
     Rn = jnp.eye(POSE_DIM, dtype=jnp.float64) * 1e-9 * noise_scale
 
-    # matmul_nowhile + unrolled 7x7 Cholesky: f64 dot_general/linalg lower
-    # to while-loop emulations on TPU (~0.45 ms/scan measured for the
-    # cholesky+cho_solve pair here)
+    # matmul_nowhile + unrolled 7x7 Cholesky: no linalg loops in the
+    # update (ROADMAP C2 asks whether that still pays on the GPU)
     mm = lie.matmul_nowhile
     HP = mm(H, P)
     S = Rn + mm(HP, H.T)
@@ -773,8 +772,7 @@ def motion_compensation_with_imu(
     a_mid = 0.5 * (packet.acc[:-1] + packet.acc[1:])
     if cfg.batched_deskew:
         # Batched trail: the sequential pair walk above is a 16-trip XLA
-        # while loop of scalar f64 quaternion algebra (~1.9 ms/scan on a
-        # v5e). Identical gating via dt = 0 (quat_propagator(·, 0) is
+        # while loop of scalar f64 quaternion algebra. Identical gating via dt = 0 (quat_propagator(·, 0) is
         # exactly I, so masked pairs contribute exact identity transitions
         # to the orientation chain and zero increments to the prefix
         # sums); only the per-step quaternion renormalization moves to the
@@ -848,17 +846,14 @@ def motion_compensation_with_imu(
 
     # parallel per-point undistortion: interval = last trail entry with
     # offset < t_pt (the reference's strict `>` walk, ekf.cpp:431).
-    # TPU restructure: the old form gathered (N, 3, 3) f64 rows and ran
-    # batched f64 matmuls + per-point so3_exp — f64 dot_generals lower to
-    # bf16 while-loop emulation and a minor dim of 3 lane-pads to 128. The
-    # trail rows are packed into ONE f32 table instead; a single row gather
+    # The old form gathered (N, 3, 3) f64 rows and ran batched f64
+    # matmuls + per-point so3_exp. The trail rows are packed into ONE f32 table instead; a single row gather
     # plus elementwise Rodrigues does the whole undistortion in f32 (the
     # compensation displacement is sub-metre; the output is f32 anyway).
     # interval search + in-interval offset in f32: rel_t spans one scan
     # period (<= ~0.1 s), where f32 resolution is ~6 ns — three orders
-    # below IMU timestamp jitter — while f64 per-point compares/subtracts
-    # on 131k points run as emulated f32-pair chains (measured ~1.3
-    # ms/scan of the LIO step on a v5e)
+    # below IMU timestamp jitter — and f32 halves the bytes of the
+    # per-point compares/subtracts on 131k points
     offsets = trail["offset"].astype(jnp.float32)  # (M,) inf on invalid
     rel32 = rel_t.astype(jnp.float32)
     k = jnp.clip(jnp.searchsorted(offsets, rel32, side="left") - 1, 0, offsets.shape[0] - 1)
@@ -870,10 +865,9 @@ def motion_compensation_with_imu(
         ],
         axis=1,
     ).astype(jnp.float32)  # (M, 21)
-    # per-point trail-row broadcast WITHOUT a (N, 21) row gather: slicing
-    # columns back out of a row-major (N, 21) gather re-reads every (8,128)
-    # tile of the table per column (measured 1.3 ms/scan at 131k points on
-    # a v5e). The trail is tiny (M ~ 17 rows), so a masked sum over the M
+    # per-point trail-row broadcast WITHOUT a (N, 21) row gather (slicing
+    # columns back out of a row-major gather re-reads the table per
+    # column). The trail is tiny (M ~ 17 rows), so a masked sum over the M
     # static rows — one vectorized compare against `k` per row, scalar
     # table entries broadcast — fuses into a single loop fusion that reads
     # `k` once and writes the 22 SoA columns.
@@ -973,7 +967,7 @@ def predict_over_packet_batched(
 ) -> EkfState:
     """Batched reformulation of `predict_over_packet`: the sequential
     per-sample scan (30 scalar block writes + five 30/170-dim matmuls per
-    sample, each a serialized scan step on TPU) collapses into
+    sample, each a serialized scan step) collapses into
 
       * closed-form bias decay (the per-sample exp(-dt*rate) factors are a
         cumulative product -> one exp of a cumsum),
@@ -1102,7 +1096,7 @@ def predict_dispatch(
     state: EkfState, packet: ImuPacket, trans_lidar_imu, rot_lidar_imu,
     cfg: EkfConfig,
 ) -> EkfState:
-    """Config-selected predict: batched (default, TPU-fast) or the
+    """Config-selected predict: batched (default) or the
     sequential per-sample scan (bit-for-bit reference semantics)."""
     fn = (
         predict_over_packet_batched if cfg.batched_predict

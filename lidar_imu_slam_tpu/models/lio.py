@@ -128,14 +128,13 @@ def step(
 ):
     """One LIO step. Returns (state', LioOutput).
 
-    With the fused-Pallas backend (unbatched), registration runs through
-    the same fast trunk as the lidar-only step (`kiss_icp._fast_trunk`:
-    pose kernels + float-float ICP carrier): the classic f64
-    `registration_dispatch` while-loop measured 4.8 ms of a 10.7 ms LIO
-    scan on a v5e (round-5 trace) — the EKF guess feeds the trunk as one
-    f64->float-float split, and only the EKF algebra itself stays f64.
+    With the fused backend (unbatched), registration runs through the
+    same fast trunk as the lidar-only step (`kiss_icp._fast_trunk`: f32
+    pose chains + float-float ICP carrier) instead of the classic f64
+    `registration_dispatch` while loop — the EKF guess feeds the trunk as
+    one f64->float-float split, and only the EKF algebra itself stays f64.
     """
-    fast = cfg.icp.gn_backend == "pallas" and cfg.icp.batch_unroll_outer == 0
+    fast = cfg.icp.gn_backend == "fused" and cfg.icp.batch_unroll_outer == 0
     full = _with_prev_sample(packet, state.last_imu)
 
     # --- IMU static initialization phase --------------------------------
@@ -184,7 +183,7 @@ def step(
         return ekf_state, deskewed, guess
 
     # pre-ICP bookkeeping row (fast path): CV guess + adaptive sigma +
-    # deskew twist in one kernel dispatch
+    # deskew twist in one f32 chain
     row = kiss_icp.pose_pre_row(state.odo, cfg) if fast else None
 
     # --- branch B: constant-velocity fallback ---------------------------
@@ -192,7 +191,7 @@ def step(
         from ..ops import deskew as deskew_ops
 
         if fast:
-            # kernel-gated twist: identity when deskew off or < 3 poses
+            # chain-gated twist: identity when deskew off or < 3 poses
             deskewed = deskew_ops.deskew_from_scalars(
                 scan.xyz, scan.tau, row[19:32]
             )

@@ -5,10 +5,12 @@ from . import preprocess
 from . import imu
 from . import voxel_map
 from . import deskew
+from . import ffmath
+from . import icp_gn
+from . import pose_chain
 from . import icp
-from . import pallas
 
 __all__ = [
     "lie", "precise", "stats", "preprocess", "imu", "voxel_map", "deskew",
-    "icp", "pallas",
+    "ffmath", "icp_gn", "pose_chain", "icp",
 ]

@@ -1,22 +1,20 @@
-"""Float-float (two-f32) scalar arithmetic for Pallas TPU kernels.
+"""Float-float (two-f32) scalar arithmetic.
 
-TPU Mosaic has no f64; XLA's f64 emulation outside kernels scalarizes every
-op into its own tiny fusion with ~10-20 us of dispatch latency each (the
-round-4 profiling found ~1.2 ms/scan of a 4.3 ms step spent in ~70 such
-fusions). Inside ONE Pallas kernel the same error-free-transform arithmetic
-costs nanoseconds per op, so pose translations (which grow to km scale over
-a drive while increments stay at mm scale) are carried as (hi, lo) f32
-pairs with ~2^-48 relative precision — well beyond the f32 point math that
-consumes them and ~1e6x below the per-scan ICP noise floor.
+Pose translations grow to km scale over a drive while per-scan increments
+stay at mm scale. The fast step's f32 chains (ops/pose_chain.py,
+ops/icp_gn.py) carry them as (hi, lo) f32 pairs with ~2^-48 relative
+precision — well beyond the f32 point math that consumes them and ~1e6x
+below the per-scan ICP noise floor.
 
 The error-free transforms (Knuth two_sum, Dekker two_prod) require strict
-IEEE f32 semantics; verified exact on a live v5e (round-4 smoke test:
-residual vs f64 == 0.0). These helpers are plain jnp functions, so they
-also run under Pallas interpret mode (CPU tests) unchanged.
+IEEE f32 semantics: no reassociation of the error terms (a fused
+multiply-add only makes Dekker's products more exact). tests/
+test_pose_chain.py pins them against f64. They are plain jnp functions of
+scalars or arrays.
 
 No reference counterpart: the reference is all-f64 Eigen on CPU
-(reference src/utils/calculation_helpers.cpp); this module exists only
-because of the TPU's f32-native datapath.
+(reference src/utils/calculation_helpers.cpp). Whether native f64 makes
+this carrier unnecessary is an open design question (ROADMAP C1).
 """
 
 from __future__ import annotations
@@ -24,6 +22,14 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 _SPLIT = 4097.0  # 2^12 + 1 (Dekker splitter for the 24-bit f32 mantissa)
+
+
+def check_f32(what: str, *xs):
+    """The float-float chains are f32 by design: refuse other operands
+    (under jax_enable_x64 an f64 input would silently promote them)."""
+    for x in xs:
+        if x.dtype != jnp.float32:
+            raise TypeError(f"{what} operands must be float32, got {x.dtype}")
 
 
 def two_sum(a, b):
@@ -97,7 +103,7 @@ def mat3_apply_ff(R, th, tl):
 def atan2_pos(s, c):
     """atan2(s, c) for s >= 0 (rotation angle in [0, pi)), f32-exact.
 
-    Mosaic has no atan2 lowering; this seeds with the half-angle form
+    Built from sin/cos/division only: seeds with the half-angle form
     theta0 = 2*atan(u), u = s/(1+c), evaluating atan via the reciprocal
     identity (atan(u) = pi/2 - atan(1/u) for u > 1, branch-free select) and
     a degree-7 odd series on w = min(u, 1/u) <= 1, then polishes TWICE with

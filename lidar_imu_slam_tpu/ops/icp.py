@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from ..config import MapConfig
-from . import lie, voxel_map
+from . import icp_gn, lie, voxel_map
 from .precise import sin_
 
 
@@ -32,10 +32,8 @@ def robust_weight(res_sq: jnp.ndarray, th) -> jnp.ndarray:
 def chol6_solve(A, b):
     """Solve the SPD 6x6 system A x = b via a fully UNROLLED Cholesky.
 
-    jnp.linalg.cholesky + cho_solve lower to XLA while-loops on TPU (blocked
-    column algorithm + row-substitution loops): profiled at ~0.5 ms per call
-    from loop-iteration sync overhead alone. Unrolling the 6x6 factorization
-    and both substitutions into static scalar ops removes every loop — the
+    Unrolling the 6x6 factorization and both substitutions into static
+    scalar ops removes every loop of jnp.linalg.cholesky + cho_solve — the
     whole solve becomes one fused scalar chain.
     """
     n = 6
@@ -84,9 +82,7 @@ def align_clouds(src, tgt, corr_mask, kernel_th):
     wr = w[:, None] * r
     A = sw * jnp.eye(3, dtype=jnp.float64)  # sum w * I
     B = -lie.hat(jnp.sum(ws, axis=0))  # sum w * (-hat(s))
-    # sum_n w s s^T via 6 masked reductions (an f64 einsum/dot_general on
-    # TPU lowers to a multi-pass bf16 while loop — profiled as a large share
-    # of the GN iteration)
+    # sum_n w s s^T via 6 masked reductions (elementwise, no f64 product)
     sx, sy, sz = s[:, 0], s[:, 1], s[:, 2]
     sxx = jnp.sum(w * sx * sx)
     syy = jnp.sum(w * sy * sy)
@@ -108,9 +104,8 @@ def align_clouds(src, tgt, corr_mask, kernel_th):
     bottom = jnp.sum(jnp.cross(ws, r), axis=0)  # sum w (s x r)
     JtWr = jnp.concatenate([top, bottom])
 
-    # SPD system: unrolled Cholesky solve (f64 LU is unsupported by the TPU
-    # compiler; the reference's LDLT on an SPD matrix is numerically
-    # equivalent).
+    # SPD system: unrolled Cholesky solve (the reference's LDLT on an SPD
+    # matrix is numerically equivalent).
     ridge = 1e-9 * (1.0 + jnp.max(jnp.abs(jnp.diagonal(JtWJ))))
     x = chol6_solve(JtWJ + ridge * jnp.eye(6, dtype=jnp.float64), -JtWr)
     x = jnp.where(sw > 0, x, jnp.zeros_like(x))
@@ -120,9 +115,8 @@ def align_clouds(src, tgt, corr_mask, kernel_th):
 
 def _align_soa(sx, sy, sz, tx, ty, tz, corr_mask, kernel_th):
     """`align_clouds` on structure-of-arrays operands: source and target as
-    separate (N,) f64 vectors. Avoids every (N, 3) intermediate (TPU lane-
-    pads the minor 3 to 128 — 42x the memory traffic; profiled as the bulk
-    of the GN iteration). Same math, same return (T, xi)."""
+    separate (N,) f64 vectors. Avoids every (N, 3) intermediate. Same
+    math, same return (T, xi)."""
     rx = jnp.where(corr_mask, sx - tx, 0.0)
     ry = jnp.where(corr_mask, sy - ty, 0.0)
     rz = jnp.where(corr_mask, sz - tz, 0.0)
@@ -206,7 +200,7 @@ def icp_registration(
     """
     max_d2 = max_corresp_dist * max_corresp_dist
     # SoA f64 source coordinates: the loop never materializes an (N, 3)
-    # tensor (lane padding 3 -> 128 made the AoS iteration memory-bound)
+    # tensor
     px = points[:, 0].astype(jnp.float64)
     py = points[:, 1].astype(jnp.float64)
     pz = points[:, 2].astype(jnp.float64)
@@ -413,61 +407,20 @@ def icp_registration_unrolled(
 
 
 # ---------------------------------------------------------------------------
-# Fused-kernel registration (round 3): the GN inner loop as ONE Pallas
-# kernel per candidate fetch (ops/pallas/icp_gn.py). Same outer refetch
-# semantics as icp_registration; all inner math f32 on centered coords.
+# Fused registration: n_inner f32 GN iterations per candidate fetch
+# (ops/icp_gn.py). Same outer refetch semantics as icp_registration; all
+# inner math f32 on centered coords.
 # ---------------------------------------------------------------------------
-
-import functools as _functools
-
-
-@_functools.lru_cache(maxsize=1)
-def _interpret_default() -> bool:
-    """Pallas interpret mode off TPU (CPU tests, virtual meshes)."""
-    import jax as _jax
-
-    return _jax.default_backend() != "tpu"
-
-
-@_functools.lru_cache(maxsize=None)
-def _fused_gn_vmappable(n_inner: int, interpret: bool):
-    """fused_gn wrapped with a custom vmap rule that dispatches to the
-    grid-batched kernel — so `jax.vmap(register_frame)` (multi-stream /
-    Monte-Carlo) batches the kernel over its grid instead of failing."""
-    from jax import custom_batching
-
-    from .pallas import icp_gn
-
-    @custom_batching.custom_vmap
-    def f(q, qmask, cand, scal):
-        return icp_gn.fused_gn(q, qmask, cand, scal, n_inner, interpret)
-
-    @f.def_vmap
-    def _rule(axis_size, in_batched, q, qmask, cand, scal):  # noqa: ANN001
-        def bc(x, b):
-            return x if b else jnp.broadcast_to(
-                x[None], (axis_size,) + x.shape
-            )
-
-        q = bc(q, in_batched[0])
-        qmask = bc(qmask, in_batched[1])
-        cand = bc(cand, in_batched[2])
-        scal = bc(scal, in_batched[3])
-        out = icp_gn.fused_gn_batched(q, qmask, cand, scal, n_inner, interpret)
-        return out, tuple(True for _ in out)
-
-    return f
 
 
 def _fused_round(m, px, py, pz, mask, qmask_t, T, map_cfg: MapConfig,
                  kernel_th, max_d2, estimation_threshold,
                  min_correspondences, max_step_norm, refetch_d2,
-                 n_inner: int, interpret: bool):
+                 n_inner: int):
     """One fetch + n_inner fused GN iterations at pose T.
 
     Returns (T_delta (4,4) f64 correction in the world frame, n_corr i32,
     rms f64, iters i32, converged, stale)."""
-    qr = px.shape[0] // 128
     wx, wy, wz = _transform_soa(T, px, py, pz)
     # anchor = masked query centroid: guaranteed near the DATA (the guess
     # translation is not, e.g. a far-from-origin map under an identity
@@ -485,9 +438,9 @@ def _fused_round(m, px, py, pz, mask, qmask_t, T, map_cfg: MapConfig,
     anchor64 = anchor_raw.astype(jnp.float32).astype(jnp.float64)
     q = jnp.stack(
         [
-            (wx - anchor64[0]).astype(jnp.float32).reshape(qr, 128),
-            (wy - anchor64[1]).astype(jnp.float32).reshape(qr, 128),
-            (wz - anchor64[2]).astype(jnp.float32).reshape(qr, 128),
+            (wx - anchor64[0]).astype(jnp.float32),
+            (wy - anchor64[1]).astype(jnp.float32),
+            (wz - anchor64[2]).astype(jnp.float32),
         ]
     )
     world_f = jnp.stack(
@@ -510,12 +463,10 @@ def _fused_round(m, px, py, pz, mask, qmask_t, T, map_cfg: MapConfig,
             jnp.asarray(min_correspondences, jnp.float64),
             jnp.asarray(max_step_norm, jnp.float64),
             jnp.asarray(refetch_d2, jnp.float64),
-            jnp.float64(0.0),
-            jnp.float64(0.0),
         ]
     ).astype(jnp.float32)
-    R, t, nc, rms, it, conv, stale = _fused_gn_vmappable(n_inner, interpret)(
-        q, qmask_t, cand, scal
+    R, t, nc, rms, it, conv, stale = icp_gn.fused_gn(
+        q, qmask_t, cand, scal, n_inner
     )
     # de-center: T_world = Trans(anchor) T_centered Trans(-anchor)
     Rd = R.astype(jnp.float64)
@@ -531,7 +482,7 @@ def _fused_round(m, px, py, pz, mask, qmask_t, T, map_cfg: MapConfig,
 
 def icp_registration_fused(
     m: voxel_map.VoxelMap,
-    points,  # (N, 3) f32 sensor-frame source, N % 128 == 0
+    points,  # (N, 3) f32 sensor-frame source
     mask,  # (N,) bool
     init_guess,  # (4, 4) f64
     max_corresp_dist,
@@ -542,9 +493,8 @@ def icp_registration_fused(
     min_correspondences: int = 20,
     max_step_norm: float = 2.0,
     n_inner: int = 6,
-    interpret: bool | None = None,
 ) -> IcpResult:
-    """`icp_registration` with the fused-kernel inner loop — f64 facade
+    """`icp_registration` with the fused f32 inner loop — f64 facade
     over `icp_registration_fused_pair` (one float-float split of the guess
     in, one recombine out; the loop itself carries no f64)."""
     g = init_guess.reshape(16)
@@ -555,7 +505,6 @@ def icp_registration_fused(
         m, points, mask, gh4[:3, :3].reshape(9), gh4[:3, 3], gl4[:3, 3],
         max_corresp_dist, kernel_th, map_cfg, max_iterations,
         estimation_threshold, min_correspondences, max_step_norm, n_inner,
-        interpret,
     )
     pose = lie.make_transform(
         R9.reshape(3, 3).astype(jnp.float64),
@@ -566,7 +515,7 @@ def icp_registration_fused(
 
 def icp_registration_fused_pair(
     m: voxel_map.VoxelMap,
-    points,  # (N, 3) f32 sensor-frame source, N % 128 == 0
+    points,  # (N, 3) f32 sensor-frame source
     mask,  # (N,) bool
     guess_R9,  # (9,) f32 row-major rotation of the initial guess
     guess_th,  # (3,) f32 guess translation hi
@@ -579,45 +528,30 @@ def icp_registration_fused_pair(
     min_correspondences: int = 20,
     max_step_norm: float = 2.0,
     n_inner: int = 6,
-    interpret: bool | None = None,
 ):
-    """The fused-kernel ICP loop with NO f64 anywhere: the accumulated pose
-    rides the while loop as (R f32, t float-float) and each outer round's
-    de-centering + composition happens inside `fused_gn_carry` — one kernel
-    dispatch per candidate refetch, a handful of f32 vector fusions around
-    it. (The former f64 carrier spent more per round on XLA's scalarized
-    f64-emulation fusions than on the GN math itself — round-4 profiling.)
+    """The fused ICP loop with NO f64 anywhere: the accumulated pose rides
+    the while loop as (R f32, t float-float) and each outer round's
+    de-centering + composition happens inside `fused_gn_carry`.
 
     Outer `lax.while_loop` refetches candidates at the current pose (same
     staleness semantics as `icp_registration`: the kernel freezes once its
     accumulated correction drifts beyond half a voxel and reports `stale`);
-    the kernel runs up to `n_inner` GN iterations per dispatch.
+    each round runs up to `n_inner` GN iterations.
 
     Returns (R9 (9,) f32, t_hi (3,), t_lo (3,), iters i32, n_corr i32,
     rms f32, converged bool) — the final world pose as a float-float pair.
     """
-    from .pallas import icp_gn
-
-    if interpret is None:
-        interpret = _interpret_default()
-    if points.shape[0] % 128 != 0:
-        raise ValueError(
-            f"gn_backend='pallas' needs max_source_points % 128 == 0 "
-            f"(got {points.shape[0]}): the fused kernel tiles queries as "
-            "(N/128, 128) lanes"
-        )
     max_d2 = max_corresp_dist * max_corresp_dist
     refetch_d2 = (0.5 * map_cfg.voxel_size) ** 2
     # enough refetch rounds for the iteration budget to bind (each round
-    # runs >= 1 kernel iteration while unconverged, and may stale after
+    # runs >= 1 GN iteration while unconverged, and may stale after
     # just 1): max_iterations is the real cap on BOTH backends
     # (round-3 advisor finding)
     max_refetch = max_iterations
     px = points[:, 0].astype(jnp.float32)
     py = points[:, 1].astype(jnp.float32)
     pz = points[:, 2].astype(jnp.float32)
-    qr = points.shape[0] // 128
-    qmask_t = mask.reshape(qr, 128).astype(jnp.float32)
+    qmask_t = mask.astype(jnp.float32)
     scal = jnp.stack([
         jnp.asarray(kernel_th, jnp.float64),
         jnp.asarray(max_d2, jnp.float64),
@@ -633,7 +567,7 @@ def icp_registration_fused_pair(
 
     def body(state):
         r, iters, R9, th, tl, converged, n_corr, rms = state
-        # world-frame source at the current pose (f32 — the GN kernel is
+        # world-frame source at the current pose (f32 — the GN loop is
         # f32 on centered coordinates anyway; see _fused_round's anchor
         # rationale for why centering keeps this exact enough)
         t0, t1, t2 = th[0] + tl[0], th[1] + tl[1], th[2] + tl[2]
@@ -646,11 +580,7 @@ def icp_registration_fused_pair(
             jnp.sum(jnp.where(mask, wy, 0.0)),
             jnp.sum(jnp.where(mask, wz, 0.0)),
         ]) / nq
-        q = jnp.stack([
-            (wx - anchor[0]).reshape(qr, 128),
-            (wy - anchor[1]).reshape(qr, 128),
-            (wz - anchor[2]).reshape(qr, 128),
-        ])
+        q = jnp.stack([wx - anchor[0], wy - anchor[1], wz - anchor[2]])
         world_f = jnp.stack([wx, wy, wz], axis=-1)
         if map_cfg.packed_nn:
             cand = voxel_map.gather_candidate_planes_packed(
@@ -662,7 +592,7 @@ def icp_registration_fused_pair(
             )
         carry = jnp.concatenate([R9, th, tl, anchor])
         R9n, thn, tln, nc, rms2, it, conv, _stale = icp_gn.fused_gn_carry(
-            q, qmask_t, cand, scal, carry, n_inner, interpret
+            q, qmask_t, cand, scal, carry, n_inner
         )
         return (r + 1, iters + it.astype(jnp.int32), R9n, thn, tln, conv,
                 nc.astype(jnp.int32), rms2)
@@ -696,26 +626,15 @@ def icp_registration_fused_unrolled(
     estimation_threshold: float,
     min_correspondences: int = 20,
     max_step_norm: float = 2.0,
-    interpret: bool | None = None,
 ) -> IcpResult:
-    """Fixed-unroll fused-kernel ICP for BATCHED (vmap) execution: `n_outer`
-    static fetches x `n_inner` kernel iterations, early-exit masking. The
-    kernel batches over its grid via the custom vmap rule."""
-    if interpret is None:
-        interpret = _interpret_default()
-    if points.shape[0] % 128 != 0:
-        raise ValueError(
-            f"gn_backend='pallas' needs max_source_points % 128 == 0 "
-            f"(got {points.shape[0]}): the fused kernel tiles queries as "
-            "(N/128, 128) lanes"
-        )
+    """Fixed-unroll fused ICP for BATCHED (vmap) execution: `n_outer`
+    static fetches x `n_inner` GN iterations, early-exit masking."""
     max_d2 = max_corresp_dist * max_corresp_dist
     refetch_d2 = (0.5 * map_cfg.voxel_size) ** 2
     px = points[:, 0].astype(jnp.float64)
     py = points[:, 1].astype(jnp.float64)
     pz = points[:, 2].astype(jnp.float64)
-    qr = points.shape[0] // 128
-    qmask_t = mask.reshape(qr, 128).astype(jnp.float32)
+    qmask_t = mask.astype(jnp.float32)
 
     T_icp = jnp.eye(4, dtype=jnp.float64)
     converged = jnp.asarray(False)
@@ -727,7 +646,7 @@ def icp_registration_fused_unrolled(
         T_delta, nc, rms2, it, conv, _stale = _fused_round(
             m, px, py, pz, mask, qmask_t, T, map_cfg, kernel_th, max_d2,
             estimation_threshold, min_correspondences, max_step_norm,
-            refetch_d2, n_inner, interpret,
+            refetch_d2, n_inner,
         )
         active = ~converged
         T_icp = jnp.where(active, lie.compose(T_delta, T_icp), T_icp)
@@ -744,12 +663,12 @@ def icp_registration_fused_unrolled(
 def registration_dispatch(m, source, source_mask, init_guess, sigma,
                           map_cfg, icp_cfg) -> IcpResult:
     """Select the registration variant from the config: gn_backend
-    ("pallas" fused kernel vs "xla" f64 loops) x schedule (data-dependent
+    ("fused" f32 loop vs "xla" f64 loops) x schedule (data-dependent
     while loop vs fixed unroll for batched execution). max_corr = 3 sigma,
     kernel = sigma / 3 (reference icp.cpp:74-76)."""
     max_corr = 3.0 * sigma
     kth = sigma / 3.0
-    if icp_cfg.gn_backend == "pallas":
+    if icp_cfg.gn_backend == "fused":
         if icp_cfg.batch_unroll_outer > 0:
             return icp_registration_fused_unrolled(
                 m, source, source_mask, init_guess, max_corr, kth, map_cfg,

@@ -127,10 +127,9 @@ def _sincos_poly(theta_sq: jnp.ndarray):
     """(sin th / th, cos th) for th = sqrt(theta_sq), |th| <= ~3.2, by Taylor
     at th/4 + two double-angle steps — NO transcendental calls.
 
-    XLA emulates every f64 sin/cos on TPU with a while loop (~40-100 us of
-    loop-sync each); the ICP inner iteration calls several, which profiled
-    as a large share of the ~0.7 ms/iteration. Pure-arithmetic evaluation
-    keeps the whole GN update a single fused chain. Max abs error < 1e-14
+    Pure-arithmetic evaluation keeps the whole GN update one fused
+    elementwise chain. Whether native f64 sin/cos would serve as well on
+    the GPU is open (ROADMAP C2). Max abs error < 1e-14
     over the domain (series truncated at t^8 with |t| <= 0.8).
     """
     t2 = theta_sq / 16.0  # (th/4)^2
@@ -152,10 +151,10 @@ def se3_exp_poly(xi: jnp.ndarray) -> jnp.ndarray:
     """`se3_exp` with polynomial sin/cos and NO dot products — for hot loops
     with bounded twist norm (|w| <= ~3; ICP steps are clamped far below).
 
-    Every f64 dot_general on TPU is emulated through a multi-pass bf16 MXU
-    while loop (profiled: the 4x4/3x3 matmuls and the normal-equation einsum
-    were the bulk of the ICP iteration). Here W^2 = w w^T - |w|^2 I is built
-    from scalar products and V @ v is expanded elementwise.
+    Here W^2 = w w^T - |w|^2 I is built from scalar products and V @ v is
+    expanded elementwise, so the exp fuses into its elementwise neighbours
+    instead of becoming tiny matrix products (ROADMAP C2 asks whether that
+    still pays on the GPU).
     """
     v, w = xi[..., :3], xi[..., 3:]
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
@@ -187,9 +186,9 @@ def se3_exp_poly(xi: jnp.ndarray) -> jnp.ndarray:
 def compose(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """(..., 4, 4) @ (..., 4, 4) pose composition WITHOUT a dot_general.
 
-    An f64 matmul on TPU — even 4x4 — lowers to a multi-pass bf16 MXU while
-    loop (~40-100 us of loop sync); the unrolled scalar form fuses into the
-    surrounding elementwise chain. Use for pose math inside jitted loops.
+    The unrolled scalar form fuses into the surrounding elementwise chain
+    instead of becoming a 4x4 matrix product. Use for pose math inside
+    jitted loops.
     """
     rows = []
     for i in range(4):
@@ -240,7 +239,7 @@ def orthonormalize(T: jnp.ndarray) -> jnp.ndarray:
 def transform_inverse(T: jnp.ndarray) -> jnp.ndarray:
     R, t = T[..., :3, :3], T[..., :3, 3]
     Rt = jnp.swapaxes(R, -1, -2)
-    # -R^T t elementwise (a 3x3 f64 dot would lower to a TPU while loop)
+    # -R^T t elementwise (fuses with its neighbours; no 3x3 product)
     ti = -jnp.stack(
         [jnp.sum(R[..., :, i] * t, axis=-1) for i in range(3)], axis=-1
     )
@@ -250,11 +249,11 @@ def transform_inverse(T: jnp.ndarray) -> jnp.ndarray:
 def rotate_points(R: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
     """(..., 3, 3) rotation applied to (..., 3) points, ELEMENTWISE.
 
-    Never use a matmul for f32 point geometry: JAX's default matmul
-    precision feeds the MXU with bfloat16-truncated inputs (measured 0.59 m
-    error at 40 m range on a live v5e), silently quantizing every stored map
-    point. The elementwise form runs on the VPU at full f32 (bit-exact vs
-    numpy) and is just 9 fused multiply-adds per point.
+    Never use a matmul for f32 point geometry: at JAX's default matmul
+    precision an accelerator may truncate the inputs (TF32 keeps ~10
+    mantissa bits, ~4 cm at 40 m range), silently quantizing every stored
+    map point. The elementwise form runs at full f32 (bit-exact vs numpy)
+    and is just 9 fused multiply-adds per point.
     """
     R = R.astype(pts.dtype)
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
@@ -474,10 +473,10 @@ def quat_propagator(w: jnp.ndarray, dt) -> jnp.ndarray:
 def matmul_nowhile(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """Small/medium matmul as broadcast-multiply-reduce.
 
-    XLA lowers every f64 dot_general on TPU to a multi-pass bf16 MXU while
-    loop with heavy per-iteration sync; for matrices up to a few hundred on
-    a side (the EKF's 30/170-dim blocks) the elementwise product-reduce is
-    faster and fuses with its neighbors. Exact f64 math.
+    For matrices up to a few hundred on a side (the EKF's 30/170-dim
+    blocks) the elementwise product-reduce fuses with its neighbors.
+    Exact f64 math. Whether cuBLAS's f64 products beat it on the GPU is
+    open (ROADMAP C2).
     """
     return jnp.sum(A[..., :, :, None] * B[..., None, :, :], axis=-2)
 

@@ -1,45 +1,42 @@
-"""Per-scan pose bookkeeping as two fused Pallas TPU kernels.
+"""Per-scan pose bookkeeping of the fast KISS-ICP step as two scalar chains.
 
 The KISS-ICP step's scalar pose math — motion prediction, initial guess,
 has-moved gate, adaptive-threshold update, deskew twist, divergence gate,
 orthonormalization, map-correction delta (reference icp.cpp:36-86 +
-threshold.cpp) — is a ~70-op chain of 4x4 f64 scalar algebra. Outside a
-kernel, XLA's f64 emulation scalarizes it into ~70 separate tiny fusions
-whose dispatch latency (~10-20 us each) profiled at ~1.2 ms of a 4.3 ms
-scan on a v5e — 4x the cost of the actual GN iterations. Here the whole
-chain runs as ONE kernel before ICP (`pose_pre`) and one after
-(`pose_post`): a single dispatch each, scalar ops at register latency.
+threshold.cpp) — is a ~70-op chain of 4x4 scalar algebra. Here it runs
+in f32 + float-float as two plain `jnp` chains, one before ICP
+(`pose_pre`) and one after (`pose_post`); the f64 state crosses into
+them once per scan. XLA fuses each chain into a few loop kernels.
 
 Precision: rotations are f32 (entries O(1); the per-scan orthonormalization
 keeps the defect at f32 eps, and per-scan numeric rotation noise ~1e-7 rad
 sits 3 orders of magnitude below the ICP estimation noise). Translations —
 which grow to km scale while per-scan increments stay at mm scale — are
-carried as float-float (hi, lo) pairs (ops/pallas/ffmath.py, ~2^-48
+carried as float-float (hi, lo) pairs (ops/ffmath.py, ~2^-48
 relative). Documented deviation from the all-f64 reference (PARITY.md).
 
-These kernels serve the UNBATCHED while-loop path only: under vmap
-(multi-stream / Monte-Carlo) the classic f64 chain is vectorized across
-streams and its dispatch overhead amortizes, so batched configs
-(batch_unroll_outer > 0) keep the classic path.
+These chains serve the UNBATCHED while-loop path only: batched configs
+(batch_unroll_outer > 0) keep the classic f64 chain, vectorized across
+streams.
 
 Layouts (all f32 unless noted):
   pose_pre inputs:
-    hi/lo (49,) SMEM: [pose 16 | pose_prev 16 | first_pose 16 | thr_sse 1]
+    hi/lo (49,): [pose 16 | pose_prev 16 | first_pose 16 | thr_sse 1]
       (4x4 row-major; hi/lo = float-float split of the f64 state)
-    md (16,) SMEM: threshold model_deviation (f32 — small values)
-    ints (2,) i32 SMEM: [num_poses, thr_num_samples]
-  pose_pre output row (1,128):
+    md (16,): threshold model_deviation (f32 — small values)
+    ints (2,) i32: [num_poses, thr_num_samples]
+  pose_pre output row (33,):
     [0:9]   guess R        [9:12]  guess t hi   [12:15] guess t lo
     [15]    sigma          [16]    moved        [17] thr_sse' hi
     [18]    thr_n'         [19]    |w| (deskew) [20:23] k
     [23:26] v              [26:29] w x v        [29:32] w x (w x v)
     [32]    thr_sse' lo
-  pose_post inputs:
-    a (30,) SMEM: [icp correction R 9 | corr t hi 3 | corr t lo 3 |
-                   guess R 9 | guess t hi 3 | guess t lo 3]
+  pose_post input:
+    a (30,): [icp correction R 9 | corr t hi 3 | corr t lo 3 |
+              guess R 9 | guess t hi 3 | guess t lo 3]
     (the registration runs on world-frame source from identity, so its
-    result is the correction; the kernel composes corr @ guess itself)
-  pose_post output row (1,128):
+    result is the correction; the chain composes corr @ guess itself)
+  pose_post output row (44,):
     [0:9]   new_pose R (orthonormalized)  [9:12] t hi  [12:15] t lo
     [15]    diverged      [16:25] delta R  [25:28] delta t
     [28:44] model_deviation' (4x4 row-major)
@@ -47,19 +44,9 @@ Layouts (all f32 unless noted):
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import ffmath as ff
-
-
-@functools.lru_cache(maxsize=1)
-def _interpret_default() -> bool:
-    return jax.default_backend() != "tpu"
 
 
 def _mat3(read, base, idx=(0, 1, 2, 4, 5, 6, 8, 9, 10)):
@@ -119,24 +106,27 @@ def _axis_angle(R):
     return [sx, sy, sz], sn, c, th
 
 
-def _pre_kernel(min_motion_th, initial_threshold, max_range, deskew_on,
-                hi_ref, lo_ref, md_ref, int_ref, out_ref):
-    np_ = int_ref[0]
-    thr_n = int_ref[1]
+def pose_pre(hi, lo, md, ints, *, min_motion_th: float,
+             initial_threshold: float, max_range: float, deskew_on: bool):
+    """Run the pre-ICP bookkeeping chain. Returns the (33,) f32 row (see
+    module docstring for slots)."""
+    ff.check_f32("pose chain", hi, lo, md)
+    np_ = ints[0]
+    thr_n = ints[1]
 
     def rh(i):
-        return hi_ref[i]
+        return hi[i]
 
     R_cur = _mat3(rh, 0)
     R_prev = _mat3(rh, 16)
     R_first = _mat3(rh, 32)
     t_idx = (3, 7, 11)
-    tc_h = [hi_ref[i] for i in t_idx]
-    tc_l = [lo_ref[i] for i in t_idx]
-    tp_h = [hi_ref[16 + i] for i in t_idx]
-    tp_l = [lo_ref[16 + i] for i in t_idx]
-    tf_h = [hi_ref[32 + i] for i in t_idx]
-    tf_l = [lo_ref[32 + i] for i in t_idx]
+    tc_h = [hi[i] for i in t_idx]
+    tc_l = [lo[i] for i in t_idx]
+    tp_h = [hi[16 + i] for i in t_idx]
+    tp_l = [lo[16 + i] for i in t_idx]
+    tf_h = [hi[32 + i] for i in t_idx]
+    tf_l = [lo[32 + i] for i in t_idx]
 
     # relative pose rel = pose_prev^-1 @ pose: R_rel = Rp^T Rc,
     # t_rel = Rp^T (t - t_p) — the ff subtraction preserves the small
@@ -173,16 +163,16 @@ def _pre_kernel(min_motion_th, initial_threshold, max_range, deskew_on,
     # adaptive threshold (reference threshold.cpp:5-29): model error
     # 2*r*sin(th/2) + ||t|| of the stored deviation; sin(th/2) comes
     # straight from cos(th) — no angle extraction needed
-    R_md = _mat3(lambda i: md_ref[i], 0)
+    R_md = _mat3(lambda i: md[i], 0)
     c_md = jnp.clip(
         0.5 * (R_md[0][0] + R_md[1][1] + R_md[2][2] - 1.0), -1.0, 1.0
     )
     sin_half = jnp.sqrt(jnp.maximum(0.5 * (1.0 - c_md), 0.0))
-    t_md2 = md_ref[3] ** 2 + md_ref[7] ** 2 + md_ref[11] ** 2
+    t_md2 = md[3] ** 2 + md[7] ** 2 + md[11] ** 2
     err = 2.0 * jnp.float32(max_range) * sin_half + jnp.sqrt(t_md2)
     acc = moved & (err > jnp.float32(min_motion_th))
     sse_h, sse_l = ff.add_f(
-        hi_ref[48], lo_ref[48], jnp.where(acc, err * err, 0.0)
+        hi[48], lo[48], jnp.where(acc, err * err, 0.0)
     )
     n_new = thr_n + jnp.where(acc, 1, 0)
     sigma_ad = jnp.sqrt(sse_h / jnp.maximum(n_new, 1).astype(jnp.float32))
@@ -229,51 +219,26 @@ def _pre_kernel(min_motion_th, initial_threshold, max_range, deskew_on,
         wxv = [z, z, z]
         wwxv = [z, z, z]
 
-    out_ref[0, :33] = jnp.stack(
-        [R_g[0][0], R_g[0][1], R_g[0][2],
-         R_g[1][0], R_g[1][1], R_g[1][2],
-         R_g[2][0], R_g[2][1], R_g[2][2],
-         tg_h[0], tg_h[1], tg_h[2], tg_l[0], tg_l[1], tg_l[2],
-         sigma, moved.astype(jnp.float32), sse_h,
-         n_new.astype(jnp.float32), wn_o,
-         kx[0], kx[1], kx[2], v[0], v[1], v[2],
-         wxv[0], wxv[1], wxv[2], wwxv[0], wwxv[1], wwxv[2], sse_l]
-    )
+    return jnp.stack([R_g[0][0], R_g[0][1], R_g[0][2],
+                      R_g[1][0], R_g[1][1], R_g[1][2],
+                      R_g[2][0], R_g[2][1], R_g[2][2],
+                      tg_h[0], tg_h[1], tg_h[2], tg_l[0], tg_l[1], tg_l[2],
+                      sigma, moved.astype(jnp.float32), sse_h,
+                      n_new.astype(jnp.float32), wn_o,
+                      kx[0], kx[1], kx[2], v[0], v[1], v[2],
+                      wxv[0], wxv[1], wxv[2], wwxv[0], wwxv[1], wwxv[2], sse_l])
 
 
-def pose_pre(hi, lo, md, ints, *, min_motion_th: float,
-             initial_threshold: float, max_range: float, deskew_on: bool,
-             interpret: bool | None = None):
-    """Run the pre-ICP bookkeeping kernel. Returns the (128,) f32 row
-    (see module docstring for slots)."""
-    if interpret is None:
-        interpret = _interpret_default()
-    with jax.enable_x64(False):
-        out = pl.pallas_call(
-            functools.partial(
-                _pre_kernel, min_motion_th, initial_threshold, max_range,
-                deskew_on,
-            ),
-            out_shape=jax.ShapeDtypeStruct((1, 128), jnp.float32),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            interpret=interpret,
-        )(hi, lo, md, ints)
-    return out[0]
-
-
-def _post_kernel(max_model_deviation, a_ref, out_ref):
-    R_c = _mat3(lambda i: a_ref[i], 0, idx=tuple(range(9)))
-    tc_h = [a_ref[9 + i] for i in range(3)]
-    tc_l = [a_ref[12 + i] for i in range(3)]
-    R_g = _mat3(lambda i: a_ref[i], 15, idx=tuple(range(9)))
-    tg_h = [a_ref[24 + i] for i in range(3)]
-    tg_l = [a_ref[27 + i] for i in range(3)]
+def pose_post(a, *, max_model_deviation: float):
+    """Run the post-ICP bookkeeping chain. `a` is the (30,) f32 input
+    vector; returns the (44,) f32 row (see module docstring)."""
+    ff.check_f32("pose chain", a)
+    R_c = _mat3(lambda i: a[i], 0, idx=tuple(range(9)))
+    tc_h = [a[9 + i] for i in range(3)]
+    tc_l = [a[12 + i] for i in range(3)]
+    R_g = _mat3(lambda i: a[i], 15, idx=tuple(range(9)))
+    tg_h = [a[24 + i] for i in range(3)]
+    tg_l = [a[27 + i] for i in range(3)]
 
     # pose_icp = correction @ guess (the registration ran on world-frame
     # source from identity — reference registration.cpp:94-130 semantics,
@@ -303,7 +268,7 @@ def _post_kernel(max_model_deviation, a_ref, out_ref):
     # defect reduction, floors at f32 eps each scan (replaces the f64
     # quaternion round-trip of lie.orthonormalize on this path)
     E = _matmul3(_transpose3(R_s), R_s)
-    C = [[jnp.where(i == j, 1.5, 0.0) - 0.5 * E[i][j] for j in range(3)]
+    C = [[(1.5 if i == j else 0.0) - 0.5 * E[i][j] for j in range(3)]
          for i in range(3)]
     R_o = _matmul3(R_s, C)
 
@@ -322,7 +287,7 @@ def _post_kernel(max_model_deviation, a_ref, out_ref):
     def devsel(i, j):
         return jnp.where(div, one if i == j else zero, R_dev[i][j])
 
-    out_ref[0, :44] = jnp.stack(
+    return jnp.stack(
         [R_o[0][0], R_o[0][1], R_o[0][2],
          R_o[1][0], R_o[1][1], R_o[1][2],
          R_o[2][0], R_o[2][1], R_o[2][2],
@@ -341,20 +306,3 @@ def _post_kernel(max_model_deviation, a_ref, out_ref):
          jnp.where(div, zero, t_dev[2]),
          zero, zero, zero, one]
     )
-
-
-def pose_post(a, *, max_model_deviation: float,
-              interpret: bool | None = None):
-    """Run the post-ICP bookkeeping kernel. `a` is the (30,) f32 input
-    vector; returns the (128,) f32 row (see module docstring)."""
-    if interpret is None:
-        interpret = _interpret_default()
-    with jax.enable_x64(False):
-        out = pl.pallas_call(
-            functools.partial(_post_kernel, max_model_deviation),
-            out_shape=jax.ShapeDtypeStruct((1, 128), jnp.float32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            interpret=interpret,
-        )(a)
-    return out[0]

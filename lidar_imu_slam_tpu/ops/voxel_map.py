@@ -7,17 +7,17 @@ voxel_block.cpp) with a static-shape slab in HBM, updated functionally
 inside jit:
 
   keys   (C,)      int32  wrapped packed voxel coordinate, or EMPTY/DELETED
-  points (C, K*3)  f32    per-voxel point slabs (flat rows: TPU tiling pads a
-                          minor dimension of 3 to 128 lanes — a 42x memory
-                          blowup on stored (...,3) tensors). Unused lanes hold
+  points (C, K*3)  f32    per-voxel point slabs (flat rows, no (..., 3)
+                          minor dimension). Unused lanes hold
                           +inf so distance reductions self-mask without a
                           per-candidate count gather.
   npts   (C,)      int32  live point count per voxel (insert append cursor)
   grid   (G,)      int32  dense toroidal index: wrapped voxel coord -> slot
 
-v3 design notes (all perf-measured on a live v5e):
-  * int64 keys and u64 hash/fingerprint math were the round-1 bottleneck —
-    64-bit multiplies are emulated on TPU. Keys are int32: the map is
+v3 design notes (the speed claims behind them were measured on another
+accelerator and are to be re-measured on the GPU, ROADMAP C2):
+  * int64 keys and u64 hash/fingerprint math were the round-1 bottleneck.
+    Keys are int32: the map is
     LOCAL (evicted beyond max_range, reference voxel_hash_map.cpp:146-171),
     so coordinates wrap to _KEY_BITS=10 bits/axis; two live voxels can only
     alias if the live span exceeds 1024 voxels per axis, which `create`
@@ -27,10 +27,8 @@ v3 design notes (all perf-measured on a live v5e):
     fingerprint is EXACTLY the key bits the grid position throws away
     (the high bits of each wrapped axis field), so cell position +
     fingerprint reconstructs the full 30-bit key: verification needs NO
-    second gather. One 32k-element gather costs a flat ~0.28 ms on a v5e
-    (gather-throughput bound, independent of operand size and index
-    width — measured tools/prims5.py), so halving the gather count nearly
-    halves lookup cost vs v3's grid-gather + key-verify-gather pair.
+    second gather — half the gathers of v3's grid-gather +
+    key-verify-gather pair.
     Stale cells (evictions don't clear them) still carry the evicted
     voxel's fingerprint; they resolve to a tombstoned slot whose point
     rows are +inf / packed-sentinel — candidate fetches see an empty
@@ -78,9 +76,8 @@ _KEY_BITS = 10  # wrapped bits per axis -> 30-bit packed key
 _KEY_MASK = (1 << _KEY_BITS) - 1
 # Packed-point NN slab: each stored point as ONE i32 of VOXEL-LOCAL
 # position (10 bits/axis across a 3-voxel window centered on the key
-# voxel). XLA TPU gather AND scatter cost scale with element COUNT, so one
-# i32 per point beats 3 f32 — and an i64 scatter lowers ~10x worse than
-# i32 (two u32 planes; measured 2.24 vs 0.23 ms for the same 32k updates).
+# voxel). One i32 per point instead of 3 f32 gathers and scatters a third
+# of the elements (and an i32 scatter avoids a split i64 one).
 # The fetch decoder reconstructs world coordinates from the candidate's
 # voxel index, known exactly at fetch time from the neighbor key being
 # queried — so there is no wrap window or absolute resolution limit;
@@ -125,9 +122,8 @@ class VoxelMap(NamedTuple):
     # negative = invalid), rows limited to the first Kp = cfg.packed_width
     # points per voxel. The fused-ICP candidate fetch gathers FULL rows
     # with the slice dimension emitted FIRST (gather offset_dims=(0,)) —
-    # XLA produces the kernel's candidate-major layout directly; neither
-    # per-element gathers (~5 ms/fetch, access-count bound) nor a relayout
-    # transpose is needed. (0, 0) when cfg.packed_nn is off. Tombstoned
+    # XLA produces the GN loop's candidate-major layout directly; neither
+    # per-element gathers nor a relayout transpose is needed. (0, 0) when cfg.packed_nn is off. Tombstoned
     # slots keep garbage here — they are unreachable (every lookup goes
     # through the key-verified grid), and slots are only reused after
     # `rebuild` resets the slab.
@@ -285,11 +281,10 @@ def unpack_key_rel(key: jnp.ndarray, origin_vox: jnp.ndarray) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 # Flat-under-vmap table access
 # ---------------------------------------------------------------------------
-# XLA TPU lowers BATCHED gather/scatter (vmap over per-stream map tables)
-# far off the fast path: measured at 8 streams x 64-beam scale on a v5e,
-# the batched grid gather cost ~3x the flat per-access floor plus a
-# whole-table relayout copy, and the batched grid scatter serialized into
-# a while loop of full-grid dynamic-update-slices (~7 ms/step on a 268 MB
+# BATCHED gather/scatter (vmap over per-stream map tables) lowered far off
+# the fast path on the accelerator this was first tuned for: a batched
+# grid gather plus a whole-table relayout copy, and a batched grid scatter
+# serialized into a while loop of full-grid dynamic-update-slices (on a 268 MB
 # batched grid). These custom_vmap helpers keep the UNBATCHED op exactly
 # as written, and rewrite the BATCHED case as the same flat 1-D op on an
 # (S*G, ...) view with stream-offset indices. Leading-dim merges are
@@ -470,8 +465,8 @@ def _lookup(m: "VoxelMap", qkeys: jnp.ndarray, qvalid: jnp.ndarray,
 
     ONE element gather per query: the cell packs (fingerprint | slot) and
     the fingerprint holds every key bit the grid position discards, so the
-    match is full key verification (no keys[slot] gather — element gathers
-    cost a flat ~0.28 ms per 32k on a v5e). Fingerprint-mismatching
+    match is full key verification (no keys[slot] gather). Fingerprint-
+    mismatching
     (overwritten) cells read as absent. Returns slot per query, -1 if
     absent (which includes tombstoned slots' stale cells only in the sense
     that their rows are empty — the slot itself still resolves, and its
@@ -492,8 +487,8 @@ _LOCAL_BITS = 15  # legacy per-axis window for first_point_per_voxel
 def _voxel_group_sort(vox, mask, n: int):
     """Group points by voxel with ONE single-operand int64 sort.
 
-    Variadic sort (argsort) lowers catastrophically when batched on TPU
-    (measured 880x slower under vmap), so the sort key packs
+    A variadic sort (argsort) lowered far off the fast path when batched
+    on the accelerator this was first tuned for, so the sort key packs
     (15-bit/axis anchor-relative voxel coords | original index): the sorted
     values carry both the grouping and a stable within-group order.
 
@@ -545,8 +540,7 @@ def first_point_per_voxel(points, mask, voxel_size: float, out_capacity: int):
     n_unique = jnp.minimum(n_found, out_capacity)
 
     # Compact winners with ONE payload-carrying sort instead of two output
-    # scatters (scatters at 32k updates cost ~0.35 ms on a v5e; a 32k i64
-    # sort ~0.03): among kept lanes out_idx is distinct and nondecreasing,
+    # scatters: among kept lanes out_idx is distinct and nondecreasing,
     # so sorting by (drop flag | out_idx | original index) puts winner k at
     # slot k.
     drop = ~(first & (out_idx < out_capacity))
@@ -612,7 +606,7 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
     the within-cell winner is the EARLIEST point — the reference's
     time-sorted first-wins semantics (frame.cpp:28-51 sort + icp.cpp:9-30
     first-in wins) WITHOUT the preprocess-side full-scan sort + 131k-row
-    reorder gather (~0.9 ms/scan at 64-beam scale on a v5e). Quantization
+    reorder gather. Quantization
     ties fall back to sensor order. Callers on unsorted scans
     (LidarConfig.sort_by_time=False) pass it; sorted scans don't need it.
 
@@ -673,7 +667,7 @@ def fused_downsample(points, mask, voxel_size: float, out_capacity: int,
 
     # Compact with ONE payload-carrying i64 sort: every sorted-space field
     # rides in the sort value, so the former five separate 32k-row gathers
-    # (each an ~0.2 ms scalar-gather fusion) collapse into one unpack plus
+    # collapse into one unpack plus
     # the single point-row gather. First-lane out_idx values are distinct
     # and nondecreasing, so sorting by (not-first flag | payload) puts the
     # k-th output at slot k.
@@ -742,10 +736,8 @@ def gather_candidates(m: VoxelMap, queries, qmask, cfg: MapConfig):
     slots, present, nb = _neighbor_slots(m, queries, qmask, cfg)
     safe_slot = jnp.where(present, slots, 0)
     # gather K-point block-row PREFIXES (cfg.nn_points of K) through an
-    # i64-pair view: XLA TPU gather cost scales with ELEMENTS fetched
-    # (~1.5 ns/elem measured), so pairing f32 lanes halves it (1.20 ->
-    # 0.79 ms at 32k x 30 f32). Candidates stay FLAT (N, NB*Kn*3): a
-    # trailing dimension of 3 would be lane-padded to 128 when loop-carried.
+    # i64-pair view: pairing f32 lanes halves the gathered elements.
+    # Candidates stay FLAT (N, NB*Kn*3), with no (..., 3) minor dimension.
     # Unused block lanes hold +inf and self-mask in the distance reduction.
     kn = cfg.nn_points if cfg.nn_points else k
     rows = _gather_row_prefix(m.points, safe_slot, kn * 3)
@@ -791,51 +783,45 @@ def _neighbor_slots(m: VoxelMap, queries, qmask, cfg: MapConfig):
 
 def gather_candidate_planes(m: VoxelMap, queries, qmask, cfg: MapConfig,
                             anchor):
-    """Candidate fetch in fused-GN kernel layout (ops/pallas/icp_gn.py).
+    """Candidate fetch in the fused GN layout (ops/icp_gn.py).
 
-    queries (N, 3) f32 world frame, N a multiple of 128; anchor (3,) f32
-    centering offset. Returns (3, NB*Kn, N // 128, 128) f32 candidate
-    coordinate planes, CENTERED on anchor; +inf marks absent voxels and
-    unused block lanes (they self-lose the kernel's running-min)."""
+    queries (N, 3) f32 world frame; anchor (3,) f32 centering offset.
+    Returns (3, NB*Kn, N) f32 candidate coordinate planes, CENTERED on
+    anchor; +inf marks absent voxels and unused block lanes (they never
+    win the nearest-neighbour reduction)."""
     k = cfg.max_points_per_voxel
     kn = cfg.nn_points if cfg.nn_points else k
     n = queries.shape[0]
-    assert n % 128 == 0, f"kernel layout needs N % 128 == 0 (got {n})"
     slots, present, nb = _neighbor_slots(m, queries, qmask, cfg)
     safe_slot = jnp.where(present, slots, 0)
     rows = _gather_row_prefix(m.points, safe_slot, kn * 3)  # (N*NB, Kn*3)
     rows = jnp.where(present[:, None], rows, jnp.inf)
     r = rows.reshape(n, nb * kn, 3)
     planes = jnp.transpose(r, (2, 1, 0))  # one relayout per fetch
-    planes = planes - anchor[:, None, None].astype(jnp.float32)
-    return planes.reshape(3, nb * kn, n // 128, 128)
+    return planes - anchor[:, None, None].astype(jnp.float32)
 
 
 def gather_candidate_planes_packed(m: VoxelMap, queries, qmask,
                                    cfg: MapConfig, anchor):
-    """Candidate fetch for the fused GN kernel from the packed i32 slab.
+    """Candidate fetch for the fused GN loop from the packed i32 slab.
 
     ONE gather with the slice dimension emitted FIRST (offset_dims=(0,)):
-    XLA produces (Kp, NB*N) directly — already the kernel's candidate-major
-    orientation, so neither the (N, NB*K, 3) -> planes relayout transpose
-    (~5 ms/fetch at 4096 x 80 on a v5e) nor per-element candidate-major
-    gathers (also ~5 ms: gather cost scales with ACCESS COUNT, and element
-    gathers forfeit row locality) is needed. Rows must be gathered WHOLE —
-    prefix slices (slice_sizes < the row width) hit an XLA TPU slow path
-    measured at ~30x — which is why the slab itself is built Kp wide.
+    XLA produces (Kp, NB*N) directly — already the candidate-major
+    orientation of the GN loop, so no (N, NB*K, 3) -> planes relayout
+    transpose is needed. Rows are gathered WHOLE, which is why the slab
+    itself is built Kp wide.
 
     The voxel-local decode reconstructs each candidate's world position
     from the neighbor voxel being queried (known exactly here), so any
     `anchor` works (may be f64); the caller must center its queries on the
-    SAME anchor. Returns (3, NB*Kp, N // 128, 128) f32 candidate planes
-    centered on `anchor`; +inf marks absent voxels / unused lanes (they
-    self-lose the kernel's running min). Decoded coordinates carry the
+    SAME anchor. Returns (3, NB*Kp, N) f32 candidate planes centered on
+    `anchor`; +inf marks absent voxels / unused lanes (they never win the
+    nearest-neighbour reduction). Decoded coordinates carry the
     encode quantization (_PKL_SPAN*voxel_size/1023 per axis, ~3 mm at 1 m
     voxels) — documented deviation, buried under cm-scale ICP residuals.
     """
     kn = cfg.packed_width
     n = queries.shape[0]
-    assert n % 128 == 0, f"kernel layout needs N % 128 == 0 (got {n})"
     if cfg.neighborhood == 8:
         half = 0.5 * cfg.voxel_size
         lo = voxel_of(queries.astype(jnp.float32) - half, cfg.voxel_size)
@@ -880,9 +866,8 @@ def gather_candidate_planes_packed(m: VoxelMap, queries, qmask,
         jnp.where(bad, inf, _pk_decode_axis(
             pk, shift, kv_rel[None, :, axis], aoff[axis], vs))
         for axis, shift in ((0, 2 * _PKL_BITS), (1, _PKL_BITS), (2, 0))
-    ])  # (3, Kp, NB*N); candidate order is irrelevant — the kernel folds
-    # all NC candidates into a running min
-    return planes.reshape(3, kn * nb, n // 128, 128)
+    ])  # (3, Kp, NB*N); candidate order only breaks exact distance ties
+    return planes.reshape(3, kn * nb, n)
 
 
 def _gather_row_prefix(points: jnp.ndarray, slots: jnp.ndarray, width: int):
@@ -922,9 +907,7 @@ def deinterleave_candidates(cand):
 def nn_from_candidates_soa(cx, cy, cz, cand_valid, qx, qy, qz, qmask):
     """`nn_from_candidates` in structure-of-arrays form: de-interleaved
     candidate planes (from `deinterleave_candidates`) and (N,) f32 query
-    vectors. An (N, 3) tensor on TPU lane-pads the minor dimension 3 -> 128
-    (42x memory blowup per intermediate); the SoA ICP loop never
-    materializes one.
+    vectors. The SoA ICP loop never materializes an (N, 3) tensor.
 
     Returns (tx, ty, tz, nn_d2, found), each (N,).
     """
@@ -933,10 +916,8 @@ def nn_from_candidates_soa(cx, cy, cz, cand_valid, qx, qy, qz, qmask):
         (x - qx[:, None]) ** 2 + (y - qy[:, None]) ** 2 + (z - qz[:, None]) ** 2
     )
     d2 = jnp.where(cand_valid, d2, jnp.inf)
-    # winner extraction via one-hot masked reductions: take_along_axis is a
-    # per-row lane gather that profiled at ~0.16 ms PER CALL at (4k, 240) —
-    # 4 calls dominated the whole GN iteration. The one-hot reduce is plain
-    # VPU work over the same tile.
+    # winner extraction via one-hot masked reductions over the same tile
+    # instead of per-row take_along_axis gathers.
     best = jnp.argmin(d2, axis=-1)
     onehot = (
         jnp.arange(d2.shape[1], dtype=jnp.int32)[None, :] == best[:, None]
@@ -958,7 +939,7 @@ def nn_from_candidates(cand, cand_valid, queries, qmask):
     """Distance argmin over pre-fetched candidates (VPU-only, no gathers).
 
     `cand` is flat (N, NB*K*3); strided lane slices expose x/y/z without ever
-    materializing a (..., 3)-minor tensor (lane-padding trap). Empty slots
+    materializing a (..., 3)-minor tensor. Empty slots
     carry +inf coordinates and lose the argmin automatically.
 
     Returns (nn_points (N,3) f32, nn_dist_sq (N,) f32, found (N,) bool).
@@ -999,17 +980,14 @@ def _insert_grouped_compact(m: VoxelMap, g: GroupedCloud, cfg: MapConfig,
                             keys) -> VoxelMap:
     """`insert_grouped` with every per-VOXEL access run at head width.
 
-    XLA TPU gather/scatter cost scales with access COUNT (~8 ns/element,
-    flat in operand size), and the v4 insert ran five of its seven access
-    ops over the full row count even though they are per-voxel quantities
+    The v4 insert ran five of its seven access ops over the full row count even though they are per-voxel quantities
     (grid find, grid claim, key write, count read, count write). Here the
     group heads are compacted to H = cfg.max_insert_voxels rows with one
     payload sort (~1 ns/element), the per-voxel ops run at H, and members
     learn their group's (slot, base, ok) through ONE row-width gather of a
     packed i32 per-head info word indexed by the head ordinal
     (cumsum(head) - 1). Net: 7 row-width access ops -> 1 row-width gather
-    + 1 row-width scatter + 6 head-width ops (measured ~1.5 -> ~0.9 ms at
-    32k rows / 16k heads on a v5e).
+    + 1 row-width scatter + 6 head-width ops.
 
     Groups beyond H (in voxel-key order) are dropped whole and counted in
     `drops` — the same truncation in kind as the downsample's
@@ -1111,8 +1089,8 @@ def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig,
 
     Within a voxel, earlier positions win the block's remaining capacity,
     matching the reference's sequential insert order
-    (voxel_hash_map.cpp:48-61). v4 gather budget — element gathers cost a
-    flat ~0.28 ms per 32k on a v5e, so the insert uses exactly THREE:
+    (voxel_hash_map.cpp:48-61). v4 gather budget — the insert uses exactly
+    THREE:
       1. find: heads read their grid cell (fingerprint-verified, _lookup
          semantics inline) — misses allocate bump-cursor slots and write
          their cells;
@@ -1122,7 +1100,7 @@ def insert_grouped(m: VoxelMap, g: GroupedCloud, cfg: MapConfig,
       3. base: current per-slot counts npts[slot].
     Scatters address the 2D slabs with (row, col) scalar indices — the
     former flat-view scatters forced materialized reshapes of the whole
-    slab each way (~0.23 ms each at (131072, 30)).
+    slab each way.
 
     Invariant relied on: slots at/above the bump cursor hold +inf point
     rows and npts == 0 — maintained by create/rebuild; evict_far resets

@@ -1,10 +1,10 @@
-"""Device-mesh sharding for multi-chip scale.
+"""Device-mesh sharding for multi-device scale.
 
 The reference is single-process/single-host (ROS pub/sub only — SURVEY §2
 "Communication backend"); its scale story stops at TBB. Here:
 
   * `stream_mesh` — a 1-D mesh sharding independent SLAM streams (data
-    parallelism over ICI); per-stream state pytrees carry a leading stream
+    parallelism); per-stream state pytrees carry a leading stream
     axis sharded on it. Cross-stream metric reductions become XLA
     all-reduces inserted by GSPMD.
   * `sharded_multistream_step` — the full odometry step over a sharded
@@ -36,10 +36,10 @@ def stream_mesh(devices=None, axis: str = "dp") -> Mesh:
 def grid_mesh(dp: int, mp: int, devices=None, axes=("dp", "mp")) -> Mesh:
     """2-D mesh for the combined scale axes: `dp` independent SLAM streams,
     each stream's voxel map sharded over `mp` devices
-    (parallel/sharded_map.py). On real hardware lay dp over the slower
-    interconnect dimension and mp over the faster one — the map axis
-    carries the per-iteration cross-shard NN argmin, the stream axis only
-    metric all-reduces."""
+    (parallel/sharded_map.py). The map axis carries the per-iteration
+    cross-shard NN argmin, the stream axis only metric all-reduces; with
+    the cards joined all to all, the mesh shape follows the algorithm
+    alone."""
     import numpy as np
 
     devices = jax.devices() if devices is None else devices
@@ -76,7 +76,7 @@ def sharded_multistream_step(mesh: Mesh, cfg: PipelineConfig, axis: str = "dp"):
 
     Inputs placed with `shard_streams` carry their stream-axis sharding into
     jit; GSPMD keeps per-stream state resident on its device and inserts
-    the all-reduces for the global metrics over ICI. Use:
+    the all-reduces for the global metrics. Use:
 
         mesh = stream_mesh()
         states = shard_streams(streams.init_batched_state(cfg, S), mesh)

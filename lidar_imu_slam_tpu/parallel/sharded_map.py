@@ -3,10 +3,10 @@ the device mesh.
 
 The stream-parallel path (`parallel/streams.py` + `parallel/mesh.py`) scales
 independent streams; this module scales a SINGLE stream's map beyond one
-chip's HBM (SURVEY §5 "long-context analog": shard_map over ICI if a single
-scan's map exceeds one chip) — BASELINE config 3's long-sequence maps.
+device's memory (SURVEY §5 "long-context analog": shard the map if a single
+scan's map exceeds one device) — BASELINE config 3's long-sequence maps.
 
-Design (TPU-idiomatic, no reference counterpart — the reference is single
+Design (no reference counterpart — the reference is single
 host):
 
   * every device owns an independent sub-table of `cfg.capacity` slots;
@@ -14,7 +14,7 @@ host):
     scales as D x capacity with windows never crossing shard boundaries.
   * queries are replicated; each shard reduces its own candidates to a
     per-shard NN, and the cross-shard argmin is a tiny (D, N, 4) reduction
-    that GSPMD lowers to an ICI collective.
+    that GSPMD lowers to a collective.
   * inserts are replicated work, masked to the owning shard (a group's
     members follow their head key's owner); eviction/rebuild are local.
 
@@ -102,7 +102,7 @@ def _sharded_fetch(smap, queries_f32, qmask, cfg):
 def _sharded_nn_from_candidates(planes, qx, qy, qz, qmask):
     """Per-shard reduce over cached candidates + cross-shard argmin: the
     only cross-device traffic is the (D, N, 4) winner exchange, which GSPMD
-    lowers to an ICI collective. Returns SoA winners."""
+    lowers to a collective. Returns SoA winners."""
     cx, cy, cz, cand_valid = planes
 
     def one(cx, cy, cz, cand_valid):
@@ -270,11 +270,10 @@ def register_frame_jit(state, scan, cfg, n_shards, n_outer=2, n_inner=4):
 #
 # Scaling model (round-2 VERDICT next #9): a (dp, mp) grid runs dp
 # independent SLAM streams, each with a D=mp-way sharded map of total
-# capacity mp * cfg.map.capacity slots (~mp x one-chip HBM budget).
+# capacity mp * cfg.map.capacity slots (~mp x one device's memory budget).
 # Per-step cross-device traffic:
 #   * mp axis: one (mp, N, 4)-f32 NN-winner argmin per GN outer round
-#     (N = max_source_points; ~4096 x 16 B = 64 KB per round) — rides the
-#     fast mesh dimension.
+#     (N = max_source_points; ~4096 x 16 B = 64 KB per round).
 #   * dp axis: scalar metric all-reduces only.
 # Everything else (candidate gather, GN reduce, insert, evict) is local to
 # a device, so step time is flat in dp and near-flat in mp until the

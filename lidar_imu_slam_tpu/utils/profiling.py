@@ -67,3 +67,57 @@ def block_and_time(fn, *args, repeats: int = 10, **kw):
         out = fn(*args, **kw)
     jax.block_until_ready(out)
     return (time.perf_counter() - t0) / repeats
+
+
+def trace_device_summary(log_dir: str, device: str = "GPU", top: int = 25):
+    """Reduce a `jax.profiler.trace(log_dir, create_perfetto_trace=True)`
+    capture to device metrics: the window (first to last device event),
+    busy time (union of the device's op intervals), idle share
+    (1 - busy / window), and the `top` ops by summed device time.
+
+    Returns a dict; times in microseconds."""
+    import collections
+    import glob
+    import gzip
+    import json
+
+    files = sorted(glob.glob(f"{log_dir}/**/perfetto_trace.json.gz",
+                             recursive=True))
+    if not files:
+        raise FileNotFoundError(f"no perfetto trace under {log_dir}")
+    with gzip.open(files[-1]) as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    names = {
+        e["pid"]: e.get("args", {}).get("name", "")
+        for e in events
+        if e.get("ph") == "M" and e.get("name") == "process_name"
+    }
+    pids = {p for p, n in names.items() if device in n}
+    ops = [e for e in events
+           if e.get("ph") == "X" and e.get("pid") in pids and e.get("dur")]
+    if not ops:
+        raise ValueError(f"no {device} events in {files[-1]}")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in ops)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    per_op = collections.Counter()
+    count = collections.Counter()
+    for e in ops:
+        per_op[e["name"]] += float(e["dur"])
+        count[e["name"]] += 1
+    return {
+        "window_us": window,
+        "busy_us": busy,
+        "idle_share": 1.0 - busy / window if window > 0 else 0.0,
+        "n_ops": len(ops),
+        "top": [(n, d, count[n]) for n, d in per_op.most_common(top)],
+    }

@@ -105,3 +105,28 @@ def rpe_rmse(est_poses, gt_poses, delta: int = 1):
     return float(np.sqrt(np.mean(np.square(terr)))), float(
         np.sqrt(np.mean(np.square(rerr)))
     )
+
+
+def ate_displacement(poses, gt, shift: float = 0.0) -> float:
+    """Translation RMS ATE of odometry poses against ground truth, compared
+    as displacements from the first pose.
+
+    `shift` picks the intra-scan time the estimator's pose convention
+    anchors to, in scan periods: 0.5 for the KISS CV deskew (mid-scan
+    frame, reference deskew.cpp:10-29's tau-0.5), 1.0 for LIO (the EKF
+    extrapolates to scan END and the IMU undistortion targets the
+    scan-end frame, reference ekf.cpp:393-456). Scan 0 registers against
+    an empty map at identity, so the odometry anchor carries the
+    (convention-dependent) pose of scan 0's cloud — differencing removes
+    it."""
+    poses = np.asarray(poses)
+    n = poses.shape[0]
+    pos = np.asarray(gt)[:, :3, 3]
+    t = np.minimum(np.arange(n, dtype=np.float64) + shift, len(gt) - 1.0)
+    k = np.minimum(t.astype(int), len(gt) - 2)
+    a = (t - k)[:, None]
+    target = (1.0 - a) * pos[k] + a * pos[k + 1]
+    R0 = np.asarray(gt)[0, :3, :3]
+    target_rel = (target - target[0]) @ R0  # rows: R0^T (p - p_0)
+    d = (poses[:, :3, 3] - poses[0, :3, 3]) - target_rel
+    return float(np.sqrt(np.mean(np.sum(d**2, axis=-1))))

@@ -127,7 +127,7 @@ def orthonormalize(T):
 
 def rigid_f32(R, t, p):
     """Elementwise f32 rigid transform, bit-matching ops/lie.rotate_points
-    (which avoids the MXU's bf16 truncation). numpy's f32 matmul (BLAS sgemm)
+    (which avoids reduced-precision matmul inputs). numpy's f32 matmul (BLAS sgemm)
     accumulates in a different order, so a matmul here would NOT bit-match."""
     R = R.astype(np.float32)
     t = t.astype(np.float32)

@@ -3,7 +3,7 @@
 // The reference does its host-side preprocessing in C++ inside ROS callbacks
 // (reference src/sensors/lidar/frame.cpp:101-193: range gate, per-point
 // relative time with constant-rotation fallback, sort by time). This is the
-// TPU framework's equivalent host runtime component: it turns a raw sensor
+// framework's equivalent host runtime component: it turns a raw sensor
 // buffer into the padded, time-sorted, masked tensors the jitted device step
 // consumes — off the Python interpreter, overlapping with device compute in
 // the runner's prefetch thread.

@@ -88,3 +88,12 @@ def _write_cfg(tmp_path):
         "icp:\n  max_map_points: 8192\n  max_source_points: 2048\n"
     )
     return p
+
+
+def test_gn_backend_values():
+    from lidar_imu_slam_tpu import config as cfgmod
+
+    assert cfgmod.kitti_64beam().icp.gn_backend == "fused"
+    assert cfgmod.IcpConfig().gn_backend == "xla"
+    with pytest.raises(ValueError, match="gn_backend"):
+        cfgmod.IcpConfig(gn_backend="pallas")

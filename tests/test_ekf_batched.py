@@ -133,8 +133,8 @@ class TestBatchedPredictParity:
 
 class TestBatchedDeskew:
     """Batched IMU-deskew trail (associative quaternion chain + prefix
-    sums) vs the sequential per-pair scan (round-5: the 16-trip while loop
-    measured ~1.9 ms/scan on a v5e). Same f64 math reordered; the deskewed
+    sums) vs the sequential per-pair scan (a 16-trip while loop). Same f64
+    math reordered; the deskewed
     cloud and the carried filter state must agree to roundoff."""
 
     def _run(self, batched, n_imu=12, n_pts=512, last_end=0.0, mask_tail=0):

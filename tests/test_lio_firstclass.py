@@ -194,7 +194,7 @@ class TestInMotionInit:
         `speed` over the first ~2 s, so the 50-sample IMU init window sees
         a sustained 10+ m/s^2 forward specific force and completes around
         scan 4-5, several metres from the origin and still accelerating —
-        the hardest in-motion completion case. backend="pallas" routes
+        the hardest in-motion completion case. backend="fused" routes
         registration through the LIO fast trunk (kiss_icp._fast_trunk)."""
         import dataclasses
 
@@ -247,10 +247,10 @@ class TestInMotionInit:
         return cfg, gt, outs
 
     def test_in_motion_init_fast_path(self):
-        """Same drive through the LIO fast trunk (pallas backend): must
+        """Same drive through the LIO fast trunk (fused backend): must
         converge post-init and track (the fast path is the bench/production
-        configuration; interpret-mode kernels on CPU)."""
-        cfg, gt, outs = self._drive_fast(backend="pallas")
+        configuration)."""
+        cfg, gt, outs = self._drive_fast(backend="fused")
         used = np.asarray([o.used_imu for o in outs])
         assert used.any()
         first = int(np.argmax(used))

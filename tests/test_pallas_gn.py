@@ -1,9 +1,10 @@
-"""Fused Pallas GN-ICP kernel vs the f64 XLA path (ops/pallas/icp_gn.py).
+"""Fused f32 GN-ICP loop vs the f64 XLA path (ops/icp_gn.py).
 
-The kernel is all-f32 on centered coordinates with a Jacobi-preconditioned
-Cholesky; these tests pin its pose agreement with `icp_registration` (the
-reference-faithful f64 path, reference registration.cpp:94-130), its batched
-grid variant, and its vmap dispatch through the custom batching rule.
+The fused loop is all-f32 on centered coordinates with a Jacobi-
+preconditioned Cholesky; these tests pin its pose agreement with
+`icp_registration` (the reference-faithful f64 path, reference
+registration.cpp:94-130), its nearest-neighbour reduction against a
+sequential scan, its batching under `jax.vmap`, and that it stays f32.
 """
 
 import numpy as np
@@ -107,6 +108,117 @@ class TestFusedVsXla:
         assert not bool(r.converged)
 
 
+def _sequential_nn(w, c):
+    """Reference: the strict-< running-min scan over candidate slots."""
+    nc, n = c.shape[1], c.shape[2]
+    best = np.full(n, np.inf, np.float32)
+    pt = np.zeros((3, n), np.float32)
+    for j in range(nc):
+        d2 = ((c[0, j] - w[0]) ** 2 + (c[1, j] - w[1]) ** 2
+              + (c[2, j] - w[2]) ** 2).astype(np.float32)
+        hit = d2 < best
+        best = np.where(hit, d2, best)
+        pt[:, hit] = c[:, j, hit]
+    return best, pt
+
+
+class TestNearestCandidate:
+    def test_reduction_matches_sequential_scan(self):
+        from lidar_imu_slam_tpu.ops import icp_gn
+
+        rng = np.random.default_rng(7)
+        n, nc = 257, 80
+        # coordinates on a coarse grid so exact distance ties are common
+        w = rng.integers(-4, 5, size=(3, n)).astype(np.float32)
+        c = rng.integers(-4, 5, size=(3, nc, n)).astype(np.float32)
+        c[:, 30:, :64] = np.inf  # partly empty rows
+        c[:, :, 64:96] = np.inf  # rows with no candidate at all
+        c[0, 5, 100] = np.nan  # a NaN slot never wins
+        ties = 0
+        for j in range(n):
+            d = ((c[:, :, j] - w[:, j:j + 1]) ** 2).sum(0)
+            ties += int(np.sum(d == np.nanmin(d)) > 1)
+        assert ties > 50
+        best, bx, by, bz = icp_gn.nearest_candidate(
+            *map(jnp.asarray, (w[0], w[1], w[2], c[0], c[1], c[2])))
+        ref_best, ref_pt = _sequential_nn(w, c)
+        np.testing.assert_array_equal(np.asarray(best), ref_best)
+        np.testing.assert_array_equal(
+            np.stack([np.asarray(bx), np.asarray(by), np.asarray(bz)]),
+            ref_pt)
+        assert np.isinf(np.asarray(best)[64:96]).all()
+        np.testing.assert_array_equal(np.asarray(bx)[64:96], 0.0)
+
+
+class TestBenchWidth:
+    @pytest.mark.parametrize("offset", [(0.0, 0.0, 0.0),
+                                        (300.0, -250.0, 40.0)])
+    def test_fused_vs_f64_at_4096x80(self, offset):
+        """4,096 source points against 8 voxels x 10 points = 80
+        candidates per query (the kitti_64beam width)."""
+        cfg = MapConfig(voxel_size=1.0, max_range=40.0, capacity=1 << 15,
+                        neighborhood=8)
+        assert 8 * cfg.packed_width == 80
+        rng = np.random.default_rng(0)
+        world = (rng.uniform(-18, 18, size=(30000, 3))
+                 + np.asarray(offset)).astype(np.float32)
+        m = voxel_map.insert(voxel_map.create(cfg), jnp.asarray(world),
+                             jnp.ones(len(world), bool), cfg)
+        t_true = np.array([0.25, -0.15, 0.1])
+        src = jnp.asarray((world[:4096] - t_true).astype(np.float32))
+        mask = jnp.ones(4096, bool)
+        eye = jnp.eye(4, dtype=jnp.float64)
+        r_x = icp_ops.icp_registration(m, src, mask, eye, 1.5, 0.5, cfg,
+                                       30, 1e-5)
+        r_p = icp_ops.icp_registration_fused(m, src, mask, eye, 1.5, 0.5,
+                                             cfg, 30, 1e-5)
+        assert bool(r_p.converged)
+        np.testing.assert_allclose(np.asarray(r_p.pose)[:3, 3], t_true,
+                                   atol=0.02)
+        assert np.abs(np.asarray(r_p.pose) - np.asarray(r_x.pose)).max() < 1e-3
+
+
+def _gn_operands(seed, n=384, nc=24):
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-15, 15, (3, n)).astype(np.float32)
+    cand = (q[:, None, :] + 0.05
+            + rng.normal(0, 0.2, (3, nc, n))).astype(np.float32)
+    cand[:, nc // 2:, : n // 4] = np.inf
+    qm = (rng.random(n) > 0.1).astype(np.float32)
+    scal = np.array([0.3, 1.0, 1e-5, 20, 2.0, 0.25], np.float32)
+    return q, qm, cand, scal
+
+
+class TestPlainGn:
+    def test_vmap_matches_per_stream(self):
+        from lidar_imu_slam_tpu.ops import icp_gn
+
+        ops = [_gn_operands(s) for s in range(3)]
+        stacked = [jnp.asarray(np.stack(x)) for x in zip(*ops)]
+        batched = jax.jit(jax.vmap(
+            lambda q, qm, c, s: icp_gn.fused_gn(q, qm, c, s, 4)))(*stacked)
+        for i, op in enumerate(ops):
+            single = icp_gn.fused_gn(*map(jnp.asarray, op), 4)
+            for b, s in zip(batched, single):
+                np.testing.assert_allclose(
+                    np.asarray(b[i], np.float64), np.asarray(s, np.float64),
+                    rtol=1e-5, atol=1e-6)
+
+    def test_stays_float32_under_x64(self):
+        """jax_enable_x64 is on at import: no value of the fused loop may be
+        promoted to f64."""
+        from lidar_imu_slam_tpu.ops import icp_gn
+
+        q, qm, cand, scal = map(jnp.asarray, _gn_operands(0))
+        carry = jnp.zeros(18, jnp.float32)
+        jaxpr = jax.make_jaxpr(
+            lambda *a: icp_gn.fused_gn_carry(*a, 3))(q, qm, cand, scal, carry)
+        dtypes = {str(v.aval.dtype) for eqn in jaxpr.eqns for v in eqn.outvars}
+        assert "float64" not in dtypes, dtypes
+        with pytest.raises(TypeError):
+            icp_gn.fused_gn(q.astype(jnp.float64), qm, cand, scal, 1)
+
+
 class TestBatched:
     def test_unrolled_vmap_matches_single(self):
         m, world = _make_map()
@@ -129,7 +241,7 @@ class TestBatched:
             np.testing.assert_allclose(
                 np.asarray(batched.pose[i])[:3, 3], o, atol=0.02
             )
-            # batched grid kernel == unbatched kernel, bitwise-ish
+            # vmapped fused loop == unbatched fused loop
             np.testing.assert_allclose(
                 np.asarray(batched.pose[i]), np.asarray(single.pose),
                 atol=1e-6,
@@ -138,6 +250,7 @@ class TestBatched:
 
 class TestPipelineBackend:
     def test_register_frame_pallas_backend(self):
+        """The fused backend tracks the f64 backend through register_frame."""
         import dataclasses
 
         from lidar_imu_slam_tpu import config as cfgmod
@@ -152,7 +265,7 @@ class TestPipelineBackend:
                                  max_source_points=1024),
         )
         cfg_p = cfg.replace(
-            icp=dataclasses.replace(cfg.icp, gn_backend="pallas")
+            icp=dataclasses.replace(cfg.icp, gn_backend="fused")
         )
         rng = np.random.default_rng(3)
         from lidar_imu_slam_tpu.ops.preprocess import (

@@ -1,12 +1,10 @@
-"""Pose-bookkeeping kernel parity (ops/pallas/pose_chain.py + ffmath.py).
+"""Pose-bookkeeping chain parity (ops/pose_chain.py + ops/ffmath.py).
 
-The fast pallas-backend path runs the per-scan scalar pose math (reference
-icp.cpp:36-86 + threshold.cpp) inside two Pallas kernels with f32 rotations
-and float-float translations. These tests pin each kernel against the f64
-reference implementations (lie/icp/kiss_icp), the float-float primitives
-against f64 arithmetic, and the fused-kernel pair carrier end to end.
-
-Runs on CPU in Pallas interpret mode (tests/conftest.py environment).
+The fast fused-backend path runs the per-scan scalar pose math (reference
+icp.cpp:36-86 + threshold.cpp) as two f32 chains with float-float
+translations. These tests pin each chain against the f64 reference
+implementations (lie/icp/kiss_icp), the float-float primitives against
+f64 arithmetic, and the fused pair carrier end to end.
 """
 
 import numpy as np
@@ -20,7 +18,7 @@ from lidar_imu_slam_tpu.models import kiss_icp
 from lidar_imu_slam_tpu.ops import deskew as deskew_ops
 from lidar_imu_slam_tpu.ops import icp as icp_ops
 from lidar_imu_slam_tpu.ops import lie
-from lidar_imu_slam_tpu.ops.pallas import ffmath, pose_chain
+from lidar_imu_slam_tpu.ops import ffmath, pose_chain
 
 
 def _rand_pose(rng, scale_t=5.0, scale_r=0.3):
@@ -167,6 +165,25 @@ class TestPosePre:
         )
 
 
+class TestFloat32Chains:
+    def test_no_float64_under_x64(self):
+        """jax_enable_x64 is on at import: the chains must stay f32."""
+        f32 = jnp.float32
+        pre = jax.make_jaxpr(lambda h, l, m, i: pose_chain.pose_pre(
+            h, l, m, i, min_motion_th=0.1, initial_threshold=2.0,
+            max_range=30.0, deskew_on=True,
+        ))(jnp.zeros(49, f32), jnp.zeros(49, f32), jnp.zeros(16, f32),
+           jnp.zeros(2, jnp.int32))
+        post = jax.make_jaxpr(lambda a: pose_chain.pose_post(
+            a, max_model_deviation=10.0))(jnp.zeros(30, f32))
+        for jaxpr in (pre, post):
+            dtypes = {str(v.aval.dtype) for e in jaxpr.eqns for v in e.outvars}
+            assert "float64" not in dtypes, dtypes
+        with pytest.raises(TypeError):
+            pose_chain.pose_post(jnp.zeros(30, jnp.float64),
+                                 max_model_deviation=10.0)
+
+
 class TestPosePost:
     @pytest.mark.parametrize("diverge", [False, True])
     def test_matches_f64_reference(self, diverge):
@@ -212,7 +229,7 @@ class TestPosePost:
 
 class TestFastPathIntegration:
     def test_fast_path_matches_classic_pallas_core(self):
-        """The fast register_frame must track the classic pallas register
+        """The fast register_frame must track the classic fused register
         trunk scan by scan (the same GN kernel drives both; only the pose
         bookkeeping moved into kernels)."""
         from lidar_imu_slam_tpu.host import synthetic
@@ -222,7 +239,7 @@ class TestFastPathIntegration:
             lidar=cfgmod.LidarConfig(max_range=30.0, min_range=0.5, max_points=4096),
             map=cfgmod.MapConfig(voxel_size=0.5, max_range=30.0, capacity=1 << 13),
             icp=cfgmod.IcpConfig(max_map_points=2048, max_source_points=512,
-                                 gn_backend="pallas", deskew=True),
+                                 gn_backend="fused", deskew=True),
         )
         world = synthetic.make_world(seed=0, n_points=40_000, extent=(30.0, 10.0, 5.0))
         gt = synthetic.make_trajectory(n_poses=6, speed=1.0, yaw_rate=0.05, dt=0.1)

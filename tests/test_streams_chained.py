@@ -1,6 +1,6 @@
 """Batched device-pipelined streams: vmap over the stream axis INSIDE a
 lax.scan over scans (bench._bench_batched_chained's shape — the production
-multi-stream TPU feed). Guards that the chained program produces the same
+multi-stream feed). Guards that the chained program produces the same
 trajectories as the eager batched loop, and that the static `time_source`
 config (added so the rotation-model fallback is not traced into vmapped
 programs) matches the runtime-cond default."""

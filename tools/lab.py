@@ -1,46 +1,44 @@
-"""Perf lab: cached synthetic inputs + warm state for quick step experiments.
+"""Perf lab on the GPU: synthetic HDL-64E inputs + warm state for quick
+step experiments. Commands:
 
-Renders/preprocesses the 22-scan HDL-64E drive once and caches it in
-/tmp/lis_lab.npz (rendering costs minutes on this 1-core host). Commands:
+    python tools/lab.py time             # warm-step timing trials
+    python tools/lab.py trace            # device trace -> op breakdown
+    python tools/lab.py chain            # device-pipelined chain timing
+    python tools/lab.py chain_trace      # ... and its op breakdown
+    python tools/lab.py lio_chain        # device-pipelined LIO chain
+    python tools/lab.py lio_chain_trace
+    python tools/lab.py streams S        # S-stream unrolled aggregate
 
-    python tools/lab.py time      # warm-step timing trials
-    python tools/lab.py trace     # device trace -> op breakdown
-    python tools/lab.py streams S # S-stream unrolled aggregate
+Environment knobs (LIS_GN_BACKEND, LIS_SRC_POINTS, ...) select the config;
+see make_cfg. Traces go to traces/lab/ in the checkout.
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lis_tpu_tpucache")
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-jax.config.update("jax_enable_x64", True)
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
 
 from lidar_imu_slam_tpu import config as cfgmod, parallel  # noqa: E402
 from lidar_imu_slam_tpu.host import synthetic  # noqa: E402
 from lidar_imu_slam_tpu.models import kiss_icp  # noqa: E402
-from lidar_imu_slam_tpu.ops.preprocess import RawScan, preprocess_scan, pack_raw_scan  # noqa: E402
+from lidar_imu_slam_tpu.ops.preprocess import preprocess_scan, pack_raw_scan  # noqa: E402
+from lidar_imu_slam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-CACHE = "/tmp/lis_lab2.npz"  # v2: scans carry per-point azimuth timestamps
 N_SCANS = 22
 PTS = 131072
+TRACE_DIR = os.path.join(ROOT, "traces", "lab")
 
 
 def make_cfg(neigh=8):
     backend = os.environ.get("LIS_GN_BACKEND", "xla")
     nn_points = int(os.environ.get("LIS_NN_POINTS", "0"))
     src_points = int(os.environ.get("LIS_SRC_POINTS", "4096"))
-    if backend == "pallas" and src_points % 128 != 0:
-        raise SystemExit(
-            f"LIS_SRC_POINTS={src_points} must be a multiple of 128 with "
-            "LIS_GN_BACKEND=pallas (the fused kernel tiles queries as "
-            "(N/128, 128) lanes)"
-        )
     sort = bool(int(os.environ.get("LIS_SORT", "0")))
     store = bool(int(os.environ.get("LIS_STORE_POINTS", "0")))
     outer = int(os.environ.get("LIS_UNROLL_OUTER", "0"))
@@ -67,46 +65,36 @@ def make_cfg(neigh=8):
     )
 
 
-def _ensure_cache():
-    """Render the lab drive into CACHE if missing; return the loaded npz."""
-    if not os.path.exists(CACHE):
-        world = synthetic.make_world(
-            seed=0, n_points=600_000, extent=(160.0, 40.0, 12.0)
-        )
-        gt = synthetic.make_trajectory(
-            n_poses=N_SCANS, speed=8.0, yaw_rate=0.01, dt=0.1
-        )
-        save = {}
-        for i, pose in enumerate(gt):
-            pts = synthetic.render_scan(
-                world, pose, PTS, 2.5, 80.0, noise=0.02, seed=i
-            )
-            save[f"xyz{i}"] = pts
-            save[f"stamp{i}"] = i * 0.1
-        np.savez(CACHE, **save)
-    return np.load(CACHE)
+def _raws():
+    """The lab drive as packed host RawScans (rendered on every run)."""
+    world = synthetic.make_world(
+        seed=0, n_points=600_000, extent=(160.0, 40.0, 12.0)
+    )
+    gt = synthetic.make_trajectory(
+        n_poses=N_SCANS, speed=8.0, yaw_rate=0.01, dt=0.1
+    )
+    raws = []
+    for i, pose in enumerate(gt):
+        xyz = synthetic.render_scan(world, pose, PTS, 2.5, 80.0, noise=0.02,
+                                    seed=i)
+        st = i * 0.1
+        raws.append(pack_raw_scan(
+            xyz, time=synthetic.azimuth_times(xyz, st), stamp=st,
+            max_points=PTS,
+        ))
+    return raws
 
 
 def load_scans(cfg):
-    z = _ensure_cache()
-    raws = [(z[f"xyz{i}"], float(z[f"stamp{i}"])) for i in range(N_SCANS)]
     pre = jax.jit(lambda raw: preprocess_scan(raw, cfg.lidar))
-    return [
-        jax.block_until_ready(
-            pre(pack_raw_scan(
-                xyz, time=synthetic.azimuth_times(xyz, st), stamp=st,
-                max_points=PTS,
-            ))
-        )
-        for xyz, st in raws
-    ]
+    return [jax.block_until_ready(pre(r)) for r in _raws()]
 
 
 def warm_state(cfg, scans, n=21):
     state = kiss_icp.init_state(cfg)
     for i in range(n):
         state, out = kiss_icp.register_frame_jit(state, scans[i], cfg)
-    np.asarray(out.pose)
+    jax.block_until_ready(out.pose)
     return state
 
 
@@ -119,44 +107,27 @@ def cmd_time():
         n = 30
         for _ in range(n):
             s2, out = kiss_icp.register_frame_jit(state, scans[21], cfg)
-        np.asarray(out.pose)
+        jax.block_until_ready(out.pose)
         print(f"trial {trial}: {(time.perf_counter()-t0)/n*1e3:.2f} ms/step "
               f"iters={int(out.icp_iterations)}")
 
 
 def _trace_report(trace_fn, n_steps: int, top: int = 60):
-    """Run trace_fn under the profiler and print a per-op breakdown."""
-    import collections
-    import glob
-    import gzip
-    import json
+    """Run trace_fn under the profiler and print the device's idle share
+    and a per-op breakdown."""
     import shutil
 
-    shutil.rmtree("/tmp/lis_trace2", ignore_errors=True)
-    with jax.profiler.trace("/tmp/lis_trace2"):
+    from lidar_imu_slam_tpu.utils.profiling import trace_device_summary
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    with jax.profiler.trace(TRACE_DIR, create_perfetto_trace=True):
         trace_fn()
-    f = glob.glob("/tmp/lis_trace2/**/*.trace.json.gz", recursive=True)[0]
-    with gzip.open(f) as fh:
-        t = json.load(fh)
-    names = {
-        e["pid"]: e["args"]["name"]
-        for e in t["traceEvents"]
-        if e.get("ph") == "M" and e.get("name") == "process_name"
-    }
-    tpu = [p for p, n in names.items() if "TPU" in n]
-    ev = [e for e in t["traceEvents"] if e.get("ph") == "X" and e["pid"] in tpu]
-    agg = collections.Counter()
-    cnt = collections.Counter()
-    total = 0
-    for e in ev:
-        name = e["name"]
-        agg[name] += e.get("dur", 0)
-        cnt[name] += 1
-        if not name.startswith("jit_"):  # module envelopes double-count
-            total += e.get("dur", 0)
-    for name, d in agg.most_common(top):
-        print(f"{d/1e3/n_steps:9.3f} ms/step  x{cnt[name]/n_steps:6.1f}  {name[:72]}")
-    print(f"--- device total (non-envelope): {total/1e3/n_steps:.3f} ms/step")
+    summary = trace_device_summary(TRACE_DIR, top=top)
+    for name, dur, count in summary["top"]:
+        print(f"{dur / 1e3 / n_steps:9.3f} ms/step  x{count / n_steps:6.1f}  "
+              f"{name[:72]}")
+    print(f"--- device busy {summary['busy_us'] / 1e3 / n_steps:.3f} ms/step, "
+          f"idle share {summary['idle_share']:.3f}")
 
 
 def cmd_trace():
@@ -167,7 +138,7 @@ def cmd_trace():
     def run():
         for _ in range(5):
             s2, out = kiss_icp.register_frame_jit(state, scans[21], cfg)
-        np.asarray(out.pose)
+        jax.block_until_ready(out.pose)
 
     _trace_report(run, 5)
 
@@ -176,7 +147,7 @@ def _chain_setup(block: int = 11):
     """Shared builder for the device-pipelined chain experiments: the bench's
     chained mode at lab scale (map maintenance hoisted to block boundaries —
     a map-carrying lax.cond INSIDE the scan body copies every map slab per
-    scan, measured ~2.5 ms/scan)."""
+    scan)."""
     import dataclasses
     import functools
 
@@ -186,14 +157,7 @@ def _chain_setup(block: int = 11):
     body_cfg = cfg.replace(
         map=dataclasses.replace(cfg.map, auto_rebuild=False, auto_evict=False)
     )
-    z = _ensure_cache()
-    raws = []
-    for i in range(N_SCANS):
-        xyz, st = z[f"xyz{i}"], float(z[f"stamp{i}"])
-        raws.append(pack_raw_scan(
-            xyz, time=synthetic.azimuth_times(xyz, st), stamp=st,
-            max_points=PTS,
-        ))
+    raws = _raws()
     blocks = [
         jax.device_put(jax.tree.map(lambda *xs: jnp.stack(xs),
                                     *raws[i : i + block]))
@@ -225,7 +189,7 @@ def _chain_setup(block: int = 11):
 def cmd_chain():
     cfg, blocks, run_block, block = _chain_setup()
     st0, (poses, _) = run_block(kiss_icp.init_state(cfg), blocks[0])
-    np.asarray(poses)
+    jax.block_until_ready(poses)
     del st0
     n_timed = len(blocks) * block
     for trial in range(3):
@@ -235,7 +199,7 @@ def cmd_chain():
         for b in blocks:
             state, (poses, iters) = run_block(state, b)
             all_iters.append(iters)
-        np.asarray(poses)
+        jax.block_until_ready(poses)
         dt = (time.perf_counter() - t0) / n_timed * 1e3
         iters = np.concatenate([np.asarray(x) for x in all_iters])
         print(f"trial {trial}: {dt:.2f} ms/scan fresh-chain  "
@@ -246,14 +210,14 @@ def cmd_chain_trace():
     """Op breakdown of the device-pipelined chain body (the headline shape)."""
     cfg, blocks, run_block, block = _chain_setup()
     st0, (poses, _) = run_block(kiss_icp.init_state(cfg), blocks[0])
-    np.asarray(poses)
+    jax.block_until_ready(poses)
     del st0
 
     def run():
         state = kiss_icp.init_state(cfg)
         for b in blocks:
             state, (poses, _) = run_block(state, b)
-        np.asarray(poses)
+        jax.block_until_ready(poses)
 
     _trace_report(run, len(blocks) * block)
 
@@ -297,14 +261,7 @@ def _lio_chain_setup(block: int = 11):
             times[lo:hi] + 1e-3, gyros[lo:hi], accs[lo:hi], cap
         ))
 
-    z = _ensure_cache()
-    raws = []
-    for i in range(N_SCANS):
-        xyz, st = z[f"xyz{i}"], float(z[f"stamp{i}"])
-        raws.append(pack_raw_scan(
-            xyz, time=synthetic.azimuth_times(xyz, st), stamp=st,
-            max_points=PTS,
-        ))
+    raws = _raws()
     packets = [packet(i) for i in range(N_SCANS)]
     blocks = [
         jax.device_put(jax.tree.map(
@@ -342,7 +299,7 @@ def _lio_chain_setup(block: int = 11):
 def cmd_lio_chain():
     cfg, blocks, run_block, block, lio = _lio_chain_setup()
     st0, poses = run_block(lio.init_state(cfg), blocks[0])
-    np.asarray(poses)
+    jax.block_until_ready(poses)
     del st0
     n_timed = len(blocks) * block
     for trial in range(3):
@@ -350,7 +307,7 @@ def cmd_lio_chain():
         t0 = time.perf_counter()
         for b in blocks:
             state, poses = run_block(state, b)
-        np.asarray(poses)
+        jax.block_until_ready(poses)
         dt = (time.perf_counter() - t0) / n_timed * 1e3
         print(f"trial {trial}: {dt:.2f} ms/scan fresh LIO chain")
 
@@ -358,14 +315,14 @@ def cmd_lio_chain():
 def cmd_lio_chain_trace():
     cfg, blocks, run_block, block, lio = _lio_chain_setup()
     st0, poses = run_block(lio.init_state(cfg), blocks[0])
-    np.asarray(poses)
+    jax.block_until_ready(poses)
     del st0
 
     def run():
         state = lio.init_state(cfg)
         for b in blocks:
             state, poses = run_block(state, b)
-        np.asarray(poses)
+        jax.block_until_ready(poses)
 
     _trace_report(run, len(blocks) * block)
 
@@ -385,19 +342,22 @@ def cmd_streams(n_streams):
         states, outs = parallel.streams.batched_register_frame_jit(
             states, bscans[i], bcfg
         )
-    np.asarray(outs.pose)
+    jax.block_until_ready(outs.pose)
     t0 = time.perf_counter()
     for i in range(2, N_SCANS):
         states, outs = parallel.streams.batched_register_frame_jit(
             states, bscans[i], bcfg
         )
-    np.asarray(outs.pose)
+    jax.block_until_ready(outs.pose)
     agg = n_streams * (N_SCANS - 2) / (time.perf_counter() - t0)
     print(f"{n_streams}-stream unrolled aggregate: {agg:.1f} scans/s "
           f"({agg/n_streams:.2f}/stream)")
 
 
 if __name__ == "__main__":
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("tools/lab.py measures a GPU; none found")
+    enable_compile_cache()
     cmd = sys.argv[1] if len(sys.argv) > 1 else "time"
     if cmd == "time":
         cmd_time()

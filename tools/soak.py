@@ -12,20 +12,22 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lis_tpu_tpucache")
+import jax
+import numpy as np
 
-import jax  # noqa: E402
-import numpy as np  # noqa: E402
-
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-jax.config.update("jax_enable_x64", True)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 from lidar_imu_slam_tpu import config as cfgmod  # noqa: E402
 from lidar_imu_slam_tpu.host import synthetic  # noqa: E402
 from lidar_imu_slam_tpu.host.runner import OdometryRunner  # noqa: E402
+from lidar_imu_slam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
 
 def main(n_scans: int = 300):
+    d = jax.devices()[0]
+    if d.platform != "gpu":
+        raise SystemExit("tools/soak.py measures a GPU; none found")
+    enable_compile_cache()
     cfg = cfgmod.PipelineConfig(
         lidar=cfgmod.LidarConfig(
             num_scan_lines=64, max_points=131072, min_range=2.5, max_range=80.0
@@ -72,6 +74,7 @@ def main(n_scans: int = 300):
         json.dumps(
             {
                 "scans": len(poses),
+                "device": {"platform": d.platform, "kind": d.device_kind},
                 "wall_s": round(wall, 1),
                 "scans_per_sec_incl_preprocess": round(len(poses) / wall, 1),
                 "final_err_m": round(float(errs[-1]), 3),
